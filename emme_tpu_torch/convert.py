@@ -1,9 +1,9 @@
 """Carry parameters and solver state across from plain arrays.
 
-``emme_tpu`` holds its ``Params`` leaves and ``EigenState`` fields as device
-arrays; handed over as numpy arrays (``np.asarray(getattr(p, f))``) they
-build the port's counterparts here, so both packages can compute from the
-same inputs.
+``emme_tpu`` holds its ``Params`` leaves, ``EigenState`` and ``PICState``
+fields as device arrays; handed over as numpy arrays
+(``np.asarray(getattr(p, f))``) they build the port's counterparts here, so
+both packages can compute from the same inputs.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 
 from .params import DYNAMIC_FIELDS, STATIC_FIELDS, Params
 from .solvers.eigen import EigenState
+from .solvers.pic import PICState
 
 
 def params_from_arrays(fields: dict, static: dict, dtype=torch.float64,
@@ -37,3 +38,18 @@ def state_from_arrays(omega, d_omega, M, dM, device="cpu") -> EigenState:
     def t(x):
         return torch.tensor(np.asarray(x), device=device)
     return EigenState(omega=t(omega), d_omega=t(d_omega), M=t(M), dM=t(dM))
+
+
+_PIC_COMPLEX = ("weight", "dc_pb", "field")
+
+
+def pic_state_from_arrays(fields: dict, device="cpu",
+                          dtype=torch.float64) -> PICState:
+    """The port's ``PICState`` from a JAX ``PICState`` handed over as
+    arrays (name -> array-like, every field of ``PICState``): real fields
+    in ``dtype``, weight, dc_pb and field in its complex counterpart."""
+    cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
+    return PICState(**{
+        name: torch.tensor(np.asarray(fields[name]), device=device,
+                           dtype=cdtype if name in _PIC_COMPLEX else dtype)
+        for name in PICState.__dataclass_fields__})

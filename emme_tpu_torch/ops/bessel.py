@@ -1,4 +1,5 @@
-"""Scaled complex modified-Bessel I0/I1 on torch tensors.
+"""Scaled complex modified-Bessel I0/I1, and real J0/J1/i0e, on torch
+tensors.
 
 The branchless Taylor + asymptotic hybrid of ``emme_tpu/ops/bessel.py``
 (44 Taylor / 14 asymptotic terms, split at |w| = 12), accurate to ~1e-12
@@ -102,3 +103,61 @@ def bessel_i01_scaled(z):
     i1 = torch.where(use_taylor, i1_taylor, i1_asym)
     i1 = torch.where(neg_re, -i1, i1)
     return i0, i1, zs
+
+
+# ---------------------------------------------------------------------------
+# Real-argument J0/J1 for the PIC gyroaverage (emme_tpu/ops/bessel.py:199-249):
+# a 30-term Taylor sum for |x| <= 8 and the Abramowitz & Stegun 9.4.3/9.4.6
+# rational asymptotic form beyond.  Kept term for term as the JAX package
+# writes them, so float32 results carry the same rounding (the Taylor sum
+# cancels near |x| = 8); torch.special.bessel_j0 would give other numbers.
+# ---------------------------------------------------------------------------
+
+_INV_PI_2 = 0.636619772367581343      # 2 / pi
+
+
+def bessel_j0(x):
+    """J0 for real x: Taylor (|x| <= 8) + Hankel asymptotics."""
+    ax = torch.abs(x)
+    q = -0.25 * x * x
+    t = torch.ones_like(x)
+    for k in range(30, 0, -1):
+        t = 1.0 + t * q / (k * k)
+    small = t
+    z = 8.0 / torch.clamp_min(ax, 1e-30)
+    y = z * z
+    P = 1.0 + y * (-0.1098628627e-2 + y * (0.2734510407e-4
+        + y * (-0.2073370639e-5 + y * 0.2093887211e-6)))
+    Q = z * (-0.1562499995e-1 + y * (0.1430488765e-3
+        + y * (-0.6911147651e-5 + y * (0.7621095161e-6 + y * (-0.934935152e-7)))))
+    xx = ax - 0.785398163397448309616
+    large = torch.sqrt(_INV_PI_2 / torch.clamp_min(ax, 1e-30)) * (
+        torch.cos(xx) * P - torch.sin(xx) * Q)
+    return torch.where(ax <= 8.0, small, large)
+
+
+def bessel_j1(x):
+    """J1 for real x: Taylor (|x| <= 8) + Hankel asymptotics, odd parity."""
+    ax = torch.abs(x)
+    q = -0.25 * x * x
+    t = torch.ones_like(x)
+    for k in range(30, 0, -1):
+        t = 1.0 + t * q / (k * (k + 1))
+    small = 0.5 * x * t
+    z = 8.0 / torch.clamp_min(ax, 1e-30)
+    y = z * z
+    P = 1.0 + y * (0.183105e-2 + y * (-0.3516396496e-4
+        + y * (0.2457520174e-5 + y * (-0.240337019e-6))))
+    Q = z * (0.04687499995 + y * (-0.2002690873e-3
+        + y * (0.8449199096e-5 + y * (-0.88228987e-6 + y * 0.105787412e-6))))
+    xx = ax - 2.356194490192344928847
+    large = torch.sqrt(_INV_PI_2 / torch.clamp_min(ax, 1e-30)) * (
+        torch.cos(xx) * P - torch.sin(xx) * Q)
+    large = torch.where(x < 0, -large, large)
+    return torch.where(ax <= 8.0, small, large)
+
+
+def bessel_i0e(x):
+    """Scaled I0(x) e^{-|x|} for real x, in float64 (complex128 internals)."""
+    i0s, _, _ = bessel_i01_scaled(torch.as_tensor(x).to(torch.complex128))
+    return i0s.real

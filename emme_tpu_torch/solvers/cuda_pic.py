@@ -1,0 +1,574 @@
+"""The fused delta-f PIC marker pass: CUDA kernels K2, K3, K4, their plain
+PyTorch versions, and the host side of a fused run.
+
+Counterpart of ``emme_tpu/solvers/pallas_pic.py``.  The kernels
+(``csrc/pic.cu``):
+
+* K2, one RK3 stage over all markers (Pallas ``_stage_kernel``): the launch
+  ``pic_stage`` (gather, physics, RK update, per-block deposit histogram)
+  and ``pic_field`` (the block-ordered float64 sum of the histograms times
+  the quasi-neutrality coefficient).  ``stage`` runs both.
+* K3, the whole run, n_steps x 3 stages, in one persistent cooperative
+  launch (Pallas ``_mega_kernel``).  ``mega`` runs it.
+* K4, the grid-sync probe (Pallas ``alias_carry_probe``): a cooperative
+  launch at K3's grid in which each round reads what another block wrote in
+  the round before.  ``grid_sync_probe`` runs it; ``grid_sync_selfcheck``
+  runs it once per process, with the co-residency check of K3's grid.
+
+Each wrapper launches its kernel for CUDA tensors and counts the launch in
+``LAUNCHES``; for CPU tensors it runs the plain version (``stage_ref``,
+``mega_ref``, ``grid_sync_probe_ref``).  A failed build or launch raises:
+nothing falls back.  The plain versions mirror the Pallas formulas, so the
+kernel and its plain version compute one function.
+
+Markers are flat (m,) float32 structure-of-arrays (``state_to_arrs``); the
+field is two (nf,) float32 planes.  The Pallas (8, m/8) sublane view is a
+TPU layout and is not carried over.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import warnings
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..ops.bessel import bessel_j0, bessel_j1
+from . import pic
+from .pic import RK_COEF, PICState
+
+# kernel launches made by the wrappers on CUDA tensors
+LAUNCHES = {"pic_stage": 0, "pic_field": 0, "pic_mega": 0,
+            "grid_sync_probe": 0}
+# the path the last ``run`` took: "single" (K3) or "stages" (K2)
+LAST_LAUNCH: str | None = None
+
+MAX_NF = 12288          # csrc/pic.cu kMaxNf: 4 nf floats of shared memory
+THREADS = 256           # csrc/pic.cu kThreads
+PROBE_ROUNDS = 4
+
+# scalar block layout (csrc/pic.cu kP_*)
+(P_L, P_CW, P_VT, P_BT, P_SHAT, P_ODB, P_QR, P_I2CW, P_SUBDT) = range(9)
+P_CPREV, P_CCUR = 11, 12
+N_PARAMS = 16
+
+MARKERS = ("eta", "v_para", "v_perp", "w_re", "w_im", "odv", "ost", "pw")
+_PRECISIONS = ("default", "high", "highest")
+_F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# host side of a fused run
+# ---------------------------------------------------------------------------
+
+class FusedStep:
+    """Shapes, guards and the float32 scalar block of a fused run."""
+
+    def __init__(self, p, m: int, dt):
+        nf = int(p.npoints)
+        if nf % 128:
+            raise ValueError(f"fused PIC needs npoints % 128 == 0, got {nf}")
+        if m % 8 or (m // 8) % 128:
+            raise ValueError(f"fused PIC needs markers % 1024 == 0, got {m}")
+        if nf > MAX_NF:
+            raise ValueError(f"fused PIC holds the field in shared memory: "
+                             f"npoints <= {MAX_NF}, got {nf}")
+        self.nf = nf
+        self.dc = bool(p.drift_center_transformation_switch)
+        self.params = self.params_vec(p, dt)
+
+    @staticmethod
+    def params_vec(p, dt) -> np.ndarray:
+        """The (16,) float32 scalar block, computed in float32 as
+        ``pallas_pic.py:371-379`` does, with sub_dt of each stage and the
+        stage-2 RK weights."""
+        def f(v):
+            return torch.as_tensor(v).to(device="cpu", dtype=_F32)
+
+        cw = pic.cell_width(p)
+        vals = torch.zeros(N_PARAMS, dtype=_F32)
+        sets = {P_L: p.length, P_CW: cw, P_VT: p.vt, P_BT: p.b_theta,
+                P_SHAT: p.shat, P_ODB: p.omega_d_bar, P_QR: p.q * p.R,
+                P_I2CW: 1.0 / (2.0 * f(cw))}
+        for k, v in sets.items():
+            vals[k] = f(v)
+        dtf = f(dt)
+        for stage in range(3):
+            vals[P_SUBDT + stage] = float(RK_COEF[stage][stage + 1]) * dtf
+        vals[P_CPREV] = float(RK_COEF[2][1])
+        vals[P_CCUR] = float(RK_COEF[2][2])
+        return vals.numpy()
+
+    def step(self, arrs, field, qn, first: bool = False):
+        """One RK3 step: three K2 stages.  Returns (arrs, field)."""
+        vel_prev = None
+        for s in range(3):
+            velr, veli, eta, wre, wim, fr, fi = stage(
+                s, first and s == 0, self.dc, self.params, *field, qn, arrs,
+                vel_prev)
+            if s == 1:
+                vel_prev = (velr, veli)
+            arrs = dict(arrs, eta=eta, w_re=wre, w_im=wim)
+            field = (fr, fi)
+        return arrs, field
+
+
+def state_to_arrs(s: PICState) -> dict:
+    """The flat (m,) float32 marker arrays of a ``PICState``."""
+    cols = {"eta": s.eta, "v_para": s.v_para, "v_perp": s.v_perp,
+            "w_re": s.weight.real, "w_im": s.weight.imag, "odv": s.omega_dv,
+            "ost": s.omega_st, "pw": s.p_weight}
+    return {k: v.to(_F32).contiguous() for k, v in cols.items()}
+
+
+def arrs_to_state(p, arrs, field) -> PICState:
+    """Back to ``PICState``; j0 / dc_pb refreshed the way solve_field leaves
+    them (recomputed at the current eta)."""
+    eta, v_para, v_perp, odv = (arrs[k] for k in ("eta", "v_para", "v_perp",
+                                                  "odv"))
+    x_perp = v_perp / p.vt
+    sb = torch.sqrt(p.b_theta * (1.0 + (p.shat * eta) ** 2))
+    j0 = bessel_j0(x_perp * sb)
+    odi = ((p.q * p.R / v_para) * p.omega_d_bar
+           * (torch.sin(eta) * (1.0 + p.shat) - p.shat * eta * torch.cos(eta)))
+    return PICState(
+        eta=eta, v_para=v_para, v_perp=v_perp,
+        weight=torch.complex(arrs["w_re"], arrs["w_im"]),
+        omega_dv=odv, omega_st=arrs["ost"], p_weight=arrs["pw"],
+        j0=j0, dc_pb=torch.exp(-1j * odi * odv),
+        field=torch.complex(*field))
+
+
+def plane_stats(fr, fi):
+    """field_stats on the (re, im) planes (main.cpp:111-118)."""
+    return torch.stack([fr.mean(), fi.mean(),
+                        torch.sqrt((fr * fr + fi * fi).mean())])
+
+
+def run(p, marker_per_cell: int, n_steps: int, dt, generator=None,
+        state: PICState | None = None, precision: str = "default",
+        launch: str = "auto"):
+    """Full PIC run on the fused kernels, with the contract of ``pic.run``:
+    (stats (n_steps, 3), final PICState, None).  Starts from ``state`` when
+    given, else from ``pic.init_state`` with ``generator``.
+
+    ``launch``: "single" runs the whole time loop as one cooperative launch
+    of K3 and raises when the grid-sync self-check fails; "stages" launches
+    K2 stage by stage; "auto" takes K3 when the self-check passes, and
+    otherwise K2, with a warning that gives the reason.  ``LAST_LAUNCH``
+    records the path taken.
+
+    ``precision`` ("default", "high", "highest") is accepted for the JAX
+    package's contract.  On the card all three give exact float32 gathers
+    and deposits: the single bf16 pass of "default" was a property of the
+    TPU's matrix unit, and nothing here is a matrix product."""
+    global LAST_LAUNCH
+    if p.dtype != _F32:
+        raise ValueError("fused PIC is f32-only (CUDA kernels)")
+    if launch not in ("auto", "single", "stages"):
+        raise ValueError(f"launch must be auto|single|stages, got {launch}")
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision must be one of {_PRECISIONS}, "
+                         f"got {precision!r}")
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    fs = FusedStep(p, marker_per_cell * p.npoints, dt)
+    state = pic.initial_state(p, marker_per_cell, generator, state)
+    qn = pic.quasi_neutrality_coef(p, dtype=_F32)
+    arrs = state_to_arrs(state)
+    field = tuple(f.to(_F32).contiguous() for f in (state.field.real,
+                                                     state.field.imag))
+
+    path = launch
+    if launch != "stages":
+        ok, info = grid_sync_selfcheck(p.device, fs.nf, fs.dc)
+        if ok:
+            path = "single"
+        elif launch == "single":
+            raise RuntimeError(f"launch='single' needs K3's grid-sync "
+                               f"self-check to pass: {info['reason']}")
+        else:
+            warnings.warn(f"fused PIC takes the per-stage kernels (K2): "
+                          f"{info['reason']}", RuntimeWarning, stacklevel=2)
+            path = "stages"
+    LAST_LAUNCH = path
+
+    if path == "single":
+        eta, wre, wim, fr, fi, stats = mega(fs.dc, fs.params, *field, qn,
+                                            arrs, n_steps)
+        arrs = dict(arrs, eta=eta, w_re=wre, w_im=wim)
+        return stats, arrs_to_state(p, arrs, (fr, fi)), None
+    stats = []
+    for k in range(n_steps):
+        arrs, field = fs.step(arrs, field, qn, first=(k == 0))
+        stats.append(plane_stats(*field))
+    return torch.stack(stats), arrs_to_state(p, arrs, field), None
+
+
+# ---------------------------------------------------------------------------
+# the plain versions
+# ---------------------------------------------------------------------------
+
+def stage_ref(stage_idx: int, first: bool, dc: bool, params, fr, fi, qn,
+              arrs, vel_prev=None):
+    """K2's arithmetic in torch, on any device: the Pallas formulas of
+    ``pallas_pic.py:178-292`` with index gathers and ``index_add_``.
+    Returns (vel_re, vel_im, eta, w_re, w_im, field_re, field_im).  The
+    scalars are 0-d tensors on the markers' device, so on the card the
+    divisions are true divisions, as in the kernel."""
+    nf = fr.shape[0]
+    prm = torch.as_tensor(params, device=fr.device)
+    L, cw, vt, bt, shat, odb, qR, i2cw = (prm[k] for k in range(8))
+    sub_dt = prm[P_SUBDT + stage_idx]
+    eta, vpar, vperp, wre, wim, odv, ost, pw = (arrs[k] for k in MARKERS)
+
+    # locate at eta, clipped; gather f[c], f[c+1], g[c], g[c+1] (periodic)
+    x = (eta + L) / cw
+    idxf = torch.floor(x)
+    wgt = x - idxf
+    c = torch.clamp(idxf.to(torch.int64), 0, nf - 1)
+    cp, cm, cpp = (c + 1) % nf, (c - 1) % nf, (c + 2) % nf
+    f0r, f0i, f1r, f1i = fr[c], fi[c], fr[cp], fi[cp]
+    g0r, g0i = f1r - fr[cm], f1i - fi[cm]
+    g1r, g1i = fr[cpp] - f0r, fi[cpp] - f0i
+    wl = 1.0 - wgt
+    phir = wl * f0r + wgt * f1r
+    phii = wl * f0i + wgt * f1i
+    dphir = (wl * g0r + wgt * g1r) * i2cw
+    dphii = (wl * g0i + wgt * g1i) * i2cw
+
+    # marker physics (solver_pic.h:82-140)
+    x_perp = vperp / vt
+    sb = torch.sqrt(bt * (1.0 + (shat * eta) ** 2))
+    dj0 = -bt * (shat * shat) * x_perp * eta * bessel_j1(x_perp * sb) / sb
+    omega_d = odb * (torch.cos(eta) + shat * eta * torch.sin(eta))
+    if first:
+        j0 = dcr = dci = torch.zeros_like(eta)
+    else:
+        j0 = bessel_j0(x_perp * sb)
+        odi = (qR / vpar) * odb * (torch.sin(eta) * (1.0 + shat)
+                                   - shat * eta * torch.cos(eta))
+        ph = odi * odv
+        dcr, dci = torch.cos(ph), -torch.sin(ph)
+    a = ost - omega_d * odv
+    vq = vpar / qR
+    comr = -a * j0 * phii - vq * (j0 * dphir + dj0 * phir)
+    comi = a * j0 * phir - vq * (j0 * dphii + dj0 * phii)
+    if dc:
+        velr = pw * (dcr * comr + dci * comi)
+        veli = pw * (dcr * comi - dci * comr)
+    else:
+        b = omega_d * odv
+        velr = wim * b + pw * comr
+        veli = -wre * b + pw * comi
+
+    # RK combine + update (solver_pic.h:142-151, 425-435)
+    if stage_idx == 2:
+        combor = prm[P_CPREV] * vel_prev[0] + prm[P_CCUR] * velr
+        comboi = prm[P_CPREV] * vel_prev[1] + prm[P_CCUR] * veli
+    else:
+        combor, comboi = velr, veli
+    m = eta + vpar * (sub_dt / qR) + L
+    two_l = 2.0 * L
+    eta_n = m - two_l * torch.floor(m / two_l) - L
+    wre_n = wre + combor * sub_dt
+    wim_n = wim + comboi * sub_dt
+
+    # deposit at eta_n (solver_pic.h:249-354) and the field solve
+    x2 = (eta_n + L) / cw
+    i2f = torch.floor(x2)
+    w2 = x2 - i2f
+    i2 = torch.clamp(i2f.to(torch.int64), 0, nf - 1)
+    ir = torch.where(i2 + 1 >= nf, 0, i2 + 1)
+    j0n = bessel_j0(x_perp * torch.sqrt(bt * (1.0 + (shat * eta_n) ** 2)))
+    if dc:
+        odin = (qR / vpar) * odb * (torch.sin(eta_n) * (1.0 + shat)
+                                    - shat * eta_n * torch.cos(eta_n))
+        phn = odin * odv
+        dnr, dni = torch.cos(phn), -torch.sin(phn)
+        denr = j0n * (wre_n * dnr - wim_n * dni)
+        deni = j0n * (wre_n * dni + wim_n * dnr)
+    else:
+        denr, deni = j0n * wre_n, j0n * wim_n
+    # the density accumulates in float64, as the kernel's cross-block sum
+    w2l = 1.0 - w2
+    planes = []
+    for den in (denr, deni):
+        h = torch.zeros(nf, dtype=torch.float64, device=den.device)
+        h.index_add_(0, i2, (den * w2l).double())
+        h.index_add_(0, ir, (den * w2).double())
+        planes.append(h.to(den.dtype) * qn)
+    return velr, veli, eta_n, wre_n, wim_n, planes[0], planes[1]
+
+
+def mega_ref(dc: bool, params, fr, fi, qn, arrs, n_steps: int):
+    """K3's plain version: ``stage_ref`` over n_steps x 3 stages, the first
+    stage of the run with j0 = dc = 0.  Returns (eta, w_re, w_im, field_re,
+    field_im, stats (n_steps, 3))."""
+    stats = []
+    for step in range(n_steps):
+        vel_prev = None
+        for s in range(3):
+            velr, veli, eta, wre, wim, fr, fi = stage_ref(
+                s, step == 0 and s == 0, dc, params, fr, fi, qn, arrs,
+                vel_prev)
+            if s == 1:
+                vel_prev = (velr, veli)
+            arrs = dict(arrs, eta=eta, w_re=wre, w_im=wim)
+        stats.append(plane_stats(fr, fi))
+    return (arrs["eta"], arrs["w_re"], arrs["w_im"], fr, fi,
+            torch.stack(stats))
+
+
+def grid_sync_probe_ref(x, rounds: int = PROBE_ROUNDS):
+    """K4's plain version on (nblocks, slice) x: after round s block b holds
+    2 x (block (b + s) mod nblocks of round s - 1), so the result is
+    x * 2^rounds rotated by rounds (rounds + 1) / 2 blocks."""
+    return torch.roll(x, -(rounds * (rounds + 1) // 2), dims=0) * 2.0 ** rounds
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+def _library():
+    lib, _record = _build.load("pic")
+    if lib.pic_stage_launch.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        pci = ctypes.POINTER(ctypes.c_int)
+        sigs = {
+            "pic_max_nf": ([], ci),
+            "pic_params_len": ([], ci),
+            "pic_threads": ([], ci),
+            "pic_stage_grid": ([ci] * 5, ci),
+            "pic_stage_launch": ([ci, ci, ci] + [vp] * 19 + [ci, ci, ci, vp],
+                                 ci),
+            "pic_field_launch": ([vp, ci, vp, vp, vp, ci, vp], ci),
+            "pic_mega_grid": ([ci, ci, pci, pci, pci], ci),
+            "pic_mega_launch": ([ci] + [vp] * 17 + [ci, ci, ci, ci, vp], ci),
+            "grid_sync_probe_launch": ([vp, vp, ci, ci, ci, vp], ci),
+        }
+        for name, (args, res) in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
+        if (lib.pic_max_nf(), lib.pic_params_len(), lib.pic_threads()) != \
+                (MAX_NF, N_PARAMS, THREADS):
+            raise RuntimeError("csrc/pic.cu constants disagree with "
+                               "cuda_pic.py")
+    return lib
+
+
+def _check(name, t, shape, device):
+    if t.device != device or t.dtype != _F32 or not t.is_contiguous() \
+            or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"PIC kernel: {name} must be a contiguous float32 tensor of shape "
+            f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device}")
+
+
+def _check_inputs(fr, fi, qn, arrs, vel_prev=None):
+    dev, nf = fr.device, fr.shape[0]
+    m = arrs["eta"].shape[0]
+    for name, t in (("field_re", fr), ("field_im", fi), ("qn", qn)):
+        _check(name, t, (nf,), dev)
+    for k in MARKERS:
+        _check(k, arrs[k], (m,), dev)
+    for k, t in zip(("vel_re", "vel_im"), vel_prev or ()):
+        _check(k, t, (m,), dev)
+    return dev, nf, m
+
+
+def _params_host(params) -> np.ndarray:
+    params = np.ascontiguousarray(params, dtype=np.float32)
+    if params.shape != (N_PARAMS,):
+        raise ValueError(f"params must hold {N_PARAMS} floats")
+    return params
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def _launch_stage(stage_idx, first, dc, params, fr, fi, arrs, vel_prev):
+    """K2's first launch on the card: (vel_re, vel_im, eta, w_re, w_im,
+    partials (n_blocks, 2, nf))."""
+    dev, nf, m = fr.device, fr.shape[0], arrs["eta"].shape[0]
+    lib = _library()
+    params = _params_host(params)
+    with torch.cuda.device(dev):
+        n_blocks = lib.pic_stage_grid(stage_idx, int(first), int(dc), m, nf)
+        if n_blocks < 1:
+            raise RuntimeError(f"pic_stage: no grid for stage {stage_idx}, "
+                               f"first={first}, dc={dc}, m={m}, nf={nf}")
+        outs = [torch.empty(m, dtype=_F32, device=dev) for _ in range(5)]
+        partials = torch.empty((n_blocks, 2, nf), dtype=_F32, device=dev)
+        vpre, vpim = vel_prev if vel_prev is not None else (None, None)
+        err = lib.pic_stage_launch(
+            stage_idx, int(first), int(dc), params.ctypes.data,
+            fr.data_ptr(), fi.data_ptr(),
+            *(arrs[k].data_ptr() for k in MARKERS),
+            None if vpre is None else vpre.data_ptr(),
+            None if vpim is None else vpim.data_ptr(),
+            *(o.data_ptr() for o in outs), partials.data_ptr(), m, nf,
+            n_blocks, _stream(dev))
+    _raise_on(err, "pic_stage launch")
+    LAUNCHES["pic_stage"] += 1
+    return (*outs, partials)
+
+
+def _launch_field(partials, qn):
+    """K2's second launch: the field planes from the partial histograms."""
+    dev = qn.device
+    n_blocks, _, nf = partials.shape
+    fro = torch.empty(nf, dtype=_F32, device=dev)
+    fio = torch.empty(nf, dtype=_F32, device=dev)
+    with torch.cuda.device(dev):
+        err = _library().pic_field_launch(
+            partials.data_ptr(), n_blocks, qn.data_ptr(), fro.data_ptr(),
+            fio.data_ptr(), nf, _stream(dev))
+    _raise_on(err, "pic_field launch")
+    LAUNCHES["pic_field"] += 1
+    return fro, fio
+
+
+def mega_grid(device, nf: int, dc: bool) -> dict:
+    """K3's co-resident grid on ``device``: {"blocks_per_sm", "sms",
+    "grid", "cooperative"}."""
+    lib = _library()
+    bps, sms, coop = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = lib.pic_mega_grid(int(dc), nf, ctypes.byref(bps),
+                                ctypes.byref(sms), ctypes.byref(coop))
+    _raise_on(err, "pic_mega occupancy query")
+    return {"blocks_per_sm": bps.value, "sms": sms.value,
+            "grid": bps.value * sms.value, "cooperative": bool(coop.value)}
+
+
+def _launch_mega(dc, params, fr, fi, qn, arrs, n_steps):
+    dev, nf, m = fr.device, fr.shape[0], arrs["eta"].shape[0]
+    grid = mega_grid(dev, nf, dc)["grid"]
+    if grid < 1:
+        raise RuntimeError(f"pic_mega does not fit one block per SM at "
+                           f"nf={nf}")
+    params = _params_host(params)
+    eta, wre, wim = (arrs[k].clone() for k in ("eta", "w_re", "w_im"))
+    vel = torch.zeros((2, m), dtype=_F32, device=dev)
+    partials = torch.empty((grid, 2, nf), dtype=_F32, device=dev)
+    fbuf = torch.empty((2, 2, nf), dtype=_F32, device=dev)
+    stats = torch.empty((n_steps, 3), dtype=_F32, device=dev)
+    with torch.cuda.device(dev):
+        err = _library().pic_mega_launch(
+            int(dc), params.ctypes.data, fr.data_ptr(), fi.data_ptr(),
+            qn.data_ptr(), eta.data_ptr(), arrs["v_para"].data_ptr(),
+            arrs["v_perp"].data_ptr(), wre.data_ptr(), wim.data_ptr(),
+            arrs["odv"].data_ptr(), arrs["ost"].data_ptr(),
+            arrs["pw"].data_ptr(), vel[0].data_ptr(), vel[1].data_ptr(),
+            partials.data_ptr(), fbuf.data_ptr(), stats.data_ptr(), n_steps,
+            m, nf, grid, _stream(dev))
+    _raise_on(err, "pic_mega cooperative launch")
+    LAUNCHES["pic_mega"] += 1
+    out = fbuf[(3 * n_steps) % 2]
+    return eta, wre, wim, out[0], out[1], stats
+
+
+def _launch_probe(x, rounds):
+    dev = x.device
+    nblocks, slice_ = x.shape
+    buf = torch.stack([x, torch.empty_like(x)])
+    with torch.cuda.device(dev):
+        err = _library().grid_sync_probe_launch(
+            buf[0].data_ptr(), buf[1].data_ptr(), nblocks, slice_, rounds,
+            _stream(dev))
+    _raise_on(err, "grid_sync_probe cooperative launch")
+    LAUNCHES["grid_sync_probe"] += 1
+    return buf[rounds % 2]
+
+
+# ---------------------------------------------------------------------------
+# wrappers: the kernel on a CUDA tensor, the plain version on a CPU tensor
+# ---------------------------------------------------------------------------
+
+def _route(device):
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fused PIC: no kernel for device {device}")
+    return device.type == "cuda"
+
+
+def stage(stage_idx: int, first: bool, dc: bool, params, fr, fi, qn, arrs,
+          vel_prev=None):
+    """One RK3 stage over all markers (K2: ``pic_stage`` + ``pic_field``).
+    ``params``: the (16,) float32 block of ``FusedStep.params_vec``;
+    ``vel_prev``: stage 1's (vel_re, vel_im), stage 2 only.  Returns
+    (vel_re, vel_im, eta, w_re, w_im, field_re, field_im)."""
+    if stage_idx not in (0, 1, 2) or (first and stage_idx != 0) \
+            or ((stage_idx == 2) != (vel_prev is not None)):
+        raise ValueError(f"bad stage variant: stage={stage_idx}, "
+                         f"first={first}, vel_prev given="
+                         f"{vel_prev is not None}")
+    dev, _, _ = _check_inputs(fr, fi, qn, arrs, vel_prev)
+    if not _route(dev):
+        return stage_ref(stage_idx, first, dc, params, fr, fi, qn, arrs,
+                         vel_prev)
+    *outs, partials = _launch_stage(stage_idx, first, dc, params, fr, fi,
+                                    arrs, vel_prev)
+    return (*outs, *_launch_field(partials, qn))
+
+
+def mega(dc: bool, params, fr, fi, qn, arrs, n_steps: int):
+    """The whole run in one launch (K3).  Returns (eta, w_re, w_im,
+    field_re, field_im, stats (n_steps, 3)); the input arrays are not
+    modified."""
+    dev, _, _ = _check_inputs(fr, fi, qn, arrs)
+    if not _route(dev):
+        return mega_ref(dc, params, fr, fi, qn, arrs, n_steps)
+    return _launch_mega(dc, params, fr, fi, qn, arrs, n_steps)
+
+
+def grid_sync_probe(x, rounds: int = PROBE_ROUNDS):
+    """K4 on (nblocks, slice) float32 x, one cooperative block per row."""
+    if x.dim() != 2 or rounds < 1:
+        raise ValueError("grid_sync_probe takes (nblocks, slice) and "
+                         "rounds >= 1")
+    _check("x", x, x.shape, x.device)
+    if not _route(x.device):
+        return grid_sync_probe_ref(x, rounds)
+    return _launch_probe(x, rounds)
+
+
+_SELFCHECK: dict = {}
+
+
+def grid_sync_selfcheck(device, nf: int, dc: bool):
+    """Once per process and (device, nf, dc): can K3 run?  On the card:
+    the cooperative-launch attribute, K3's co-resident grid at nf, and K4
+    at that grid.  On the CPU the plain probe stands in.  Returns (ok,
+    info) with info["reason"] set when not ok."""
+    device = torch.device(device)
+    key = (str(device), nf, dc)
+    if key not in _SELFCHECK:
+        info = {"reason": None}
+        nblocks = 4
+        if _route(device):
+            info.update(mega_grid(device, nf, dc))
+            nblocks = info["grid"]
+            if not info["cooperative"]:
+                info["reason"] = "the device has no cooperative launch"
+            elif nblocks < 1:
+                info["reason"] = f"K3 does not fit one block per SM at nf={nf}"
+        if info["reason"] is None:
+            gen = torch.Generator(device=device).manual_seed(0)
+            x = torch.rand((nblocks, THREADS), generator=gen, dtype=_F32,
+                           device=device)
+            if not torch.equal(grid_sync_probe(x), grid_sync_probe_ref(x)):
+                info["reason"] = ("the grid-sync probe failed: a block did "
+                                  "not see another block's writes")
+        _SELFCHECK[key] = (info["reason"] is None, info)
+    return _SELFCHECK[key]

@@ -1,5 +1,6 @@
-"""Kernel K1 on an NVIDIA GPU: the CUDA kernel vs its plain PyTorch version,
-and the float32 solve through it.  Every test here needs a card and skips
+"""The CUDA kernels on an NVIDIA GPU against their plain PyTorch versions:
+K1 and the float32 solve through it; K2, K3 and K4 (the fused PIC marker
+pass) and the fused PIC run.  Every test here needs a card and skips
 without one.
 
 This file imports torch, numpy and the port only, so it also runs on a
@@ -16,7 +17,7 @@ import torch
 import emme_tpu_torch as et
 from emme_tpu_torch.grid import Grid
 from emme_tpu_torch.ops import cuda_kappa, kernels
-from emme_tpu_torch.solvers import eigen
+from emme_tpu_torch.solvers import cuda_pic, eigen, pic
 
 torch.set_num_threads(2)
 
@@ -82,3 +83,98 @@ def test_solve_f32_tok128_through_kernel(card):
     assert cuda_kappa.LAUNCHES - before == n_tiers * (2 + n_steps)
     assert state.M.is_cuda and vec.is_cuda
     assert abs(om - GOLDEN_TOK128) / abs(GOLDEN_TOK128) < 1e-5
+
+
+def _pic_case(card, n, mpc, dc=True, seed=0):
+    p = et.from_config(dict(_cfg("tokamak", n),
+                            drift_center_transformation_switch=dc),
+                       dtype=torch.float32, device=card)
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return p, pic.init_state(p, mpc, gen, dtype=torch.float32)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _within_ulp(a, b):
+    inf = torch.full_like(b, float("inf"))
+    return bool(((a == b) | (a == torch.nextafter(b, inf))
+                 | (a == torch.nextafter(b, -inf))).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dc", [True, False])
+@pytest.mark.parametrize("stage_idx,first", [(0, True), (0, False), (1, False),
+                                             (2, False)])
+def test_pic_stage_matches_plain(card, stage_idx, first, dc):
+    """K2 (pic_stage + pic_field) against stage_ref on the same inputs, each
+    of the 8 variants: velocity, weight and field within 2e-5 of scale
+    (tests/test_pallas_pic.py:33-59), eta within 1 ulp."""
+    p, s0 = _pic_case(card, 128, 64, dc)
+    fs = cuda_pic.FusedStep(p, 128 * 64, 0.25)
+    qn = pic.quasi_neutrality_coef(p, dtype=torch.float32)
+    arrs = cuda_pic.state_to_arrs(s0)
+    # one plain step first, so the field and the weights are not trivial
+    eta, wre, wim, fr, fi, _ = cuda_pic.mega_ref(
+        dc, fs.params, s0.field.real.contiguous(),
+        s0.field.imag.contiguous(), qn, arrs, 1)
+    arrs = dict(arrs, eta=eta, w_re=wre, w_im=wim)
+    vel_prev = None
+    if stage_idx == 2:
+        vel_prev = cuda_pic.stage_ref(1, False, dc, fs.params, fr, fi, qn,
+                                      arrs)[:2]
+    before = dict(cuda_pic.LAUNCHES)
+    got = cuda_pic.stage(stage_idx, first, dc, fs.params, fr, fi, qn, arrs,
+                         vel_prev)
+    torch.cuda.synchronize()
+    assert cuda_pic.LAUNCHES["pic_stage"] == before["pic_stage"] + 1
+    assert cuda_pic.LAUNCHES["pic_field"] == before["pic_field"] + 1
+    ref = cuda_pic.stage_ref(stage_idx, first, dc, fs.params, fr, fi, qn,
+                             arrs, vel_prev)
+    names = ("vel_re", "vel_im", "eta", "w_re", "w_im", "field_re",
+             "field_im")
+    for name, a, b in zip(names, got, ref):
+        assert a.is_cuda and bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) < 2e-5, name
+    assert _within_ulp(got[2], ref[2])
+
+
+@pytest.mark.cuda
+def test_pic_mega_matches_stages(card):
+    """K3 against K2 stage by stage over 8 steps at n=1024, 64 markers per
+    cell, from one state: stats 1e-5, state 2e-5 (dc_pb 1e-4), eta
+    bit-equal (one stage body)."""
+    p, s0 = _pic_case(card, 1024, 64)
+    st_k3, s_k3, _ = cuda_pic.run(p, 64, 8, 0.25, state=s0, launch="single")
+    st_k2, s_k2, _ = cuda_pic.run(p, 64, 8, 0.25, state=s0, launch="stages")
+    assert st_k3.shape == (8, 3) and bool(torch.isfinite(st_k3).all())
+    assert _rel(st_k3, st_k2) < 1e-5
+    for name, bar in (("weight", 2e-5), ("field", 2e-5), ("j0", 2e-5),
+                      ("dc_pb", 1e-4)):
+        assert _rel(getattr(s_k3, name), getattr(s_k2, name)) < bar, name
+    assert torch.equal(s_k3.eta, s_k2.eta)
+
+
+@pytest.mark.cuda
+def test_grid_sync_probe(card):
+    """K4 at K3's co-resident grid: every block sees every other block's
+    writes after grid.sync(), and the self-check passes."""
+    grid = cuda_pic.mega_grid(card, 1024, True)
+    assert grid["cooperative"] and grid["grid"] >= grid["sms"]
+    x = torch.rand((grid["grid"], cuda_pic.THREADS), device=card)
+    assert torch.equal(cuda_pic.grid_sync_probe(x),
+                       cuda_pic.grid_sync_probe_ref(x))
+    ok, info = cuda_pic.grid_sync_selfcheck(card, 1024, True)
+    assert ok, info
+
+
+@pytest.mark.cuda
+def test_pic_auto_takes_single_launch(card):
+    """launch='auto' runs K3 once when the self-check passes."""
+    p, s0 = _pic_case(card, 128, 8)
+    before = cuda_pic.LAUNCHES["pic_mega"]
+    stats, s, _ = cuda_pic.run(p, 8, 2, 0.25, state=s0)
+    assert cuda_pic.LAST_LAUNCH == "single"
+    assert cuda_pic.LAUNCHES["pic_mega"] == before + 1
+    assert stats.is_cuda and bool(torch.isfinite(stats).all())
