@@ -1,9 +1,10 @@
 """Carry parameters and solver state across from plain arrays.
 
-``emme_tpu`` holds its ``Params`` leaves, ``EigenState`` and ``PICState``
-fields as device arrays; handed over as numpy arrays
-(``np.asarray(getattr(p, f))``) they build the port's counterparts here, so
-both packages can compute from the same inputs.
+``emme_tpu`` holds its ``Params`` leaves, ``EigenState``, ``PICState`` and
+``SparseEigenState`` fields and its BDIA operators' (re, im) planes as
+device arrays; handed over as numpy arrays (``np.asarray(getattr(p, f))``)
+they build the port's counterparts here, so both packages can compute from
+the same inputs.
 """
 
 from __future__ import annotations
@@ -12,8 +13,10 @@ import numpy as np
 import torch
 
 from .params import DYNAMIC_FIELDS, STATIC_FIELDS, Params
+from .ops.sparse import BDIAOperator
 from .solvers.eigen import EigenState
 from .solvers.pic import PICState
+from .solvers.sparse_eigen import SparseEigenState
 
 
 def params_from_arrays(fields: dict, static: dict, dtype=torch.float64,
@@ -53,3 +56,30 @@ def pic_state_from_arrays(fields: dict, device="cpu",
         name: torch.tensor(np.asarray(fields[name]), device=device,
                            dtype=cdtype if name in _PIC_COMPLEX else dtype)
         for name in PICState.__dataclass_fields__})
+
+
+def bdia_from_arrays(data, offsets, n: int, block: int,
+                     device="cpu") -> BDIAOperator:
+    """The port's complex ``BDIAOperator`` from a JAX one's (ndiag, nb, 2,
+    bs, bs) (re, im) planes: float64 planes give complex128, float32
+    planes complex64."""
+    planes = np.asarray(data)
+    cdtype = torch.complex128 if planes.dtype == np.float64 \
+        else torch.complex64
+    cplx = torch.complex(torch.tensor(planes[:, :, 0]),
+                         torch.tensor(planes[:, :, 1]))
+    return BDIAOperator(data=cplx.to(device=device, dtype=cdtype),
+                        offsets=tuple(int(d) for d in offsets), n=int(n),
+                        block=int(block))
+
+
+def sparse_state_from_arrays(omega, d_omega, M, dM,
+                             device="cpu") -> SparseEigenState:
+    """The port's ``SparseEigenState`` from a JAX one: ``omega`` and
+    ``d_omega`` array-likes (complex, dtype kept), ``M`` and ``dM`` each a
+    (data, offsets, n, block) tuple as ``bdia_from_arrays`` takes."""
+    def t(x):
+        return torch.tensor(np.asarray(x), device=device)
+    return SparseEigenState(omega=t(omega), d_omega=t(d_omega),
+                            M=bdia_from_arrays(*M, device=device),
+                            dM=bdia_from_arrays(*dM, device=device))

@@ -28,3 +28,21 @@ def singularity_coeff_matrix(n: int, dtype=torch.float64, device="cpu"):
                       torch.ones((), dtype=dtype, device=device))
     edge = (i[None, :] == 0) | (i[None, :] == n - 1)
     return mat - 0.5 * edge.to(dtype)
+
+
+def singularity_coeff_band(n: int, h_el: int, dtype=torch.float64,
+                           device="cpu"):
+    """Banded storage of the same coefficients, built on ``device``:
+    (n, 2*h_el+1) with band[i, dj + h_el] = coeff[i, i + dj].  O(n * band)
+    memory -- the dense (n, n) matrix never exists (used by the
+    direct-to-BDIA assembly).  At n=8192, h_el=2175 it is 142 MB in
+    float32."""
+    dj = torch.arange(-h_el, h_el + 1, device=device)
+    adj = dj.abs()
+    coeff = torch.as_tensor(_COEFF, dtype=dtype, device=device)
+    base = torch.where(adj <= SINGULAR_BAND_HALF_WIDTH,
+                       coeff[adj.clamp(max=SINGULAR_BAND_HALF_WIDTH)],
+                       torch.ones((), dtype=dtype, device=device))
+    j = torch.arange(n, device=device)[:, None] + dj[None, :]
+    corr = 0.5 * ((j == 0) | (j == n - 1)).to(dtype)
+    return base[None, :] - corr

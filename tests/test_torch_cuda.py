@@ -1,7 +1,7 @@
 """The CUDA kernels on an NVIDIA GPU against their plain PyTorch versions:
 K1 and the float32 solve through it; K2, K3 and K4 (the fused PIC marker
-pass) and the fused PIC run.  Every test here needs a card and skips
-without one.
+pass) and the fused PIC run; K5 (the BSR SpMV) and the banded solve through
+it.  Every test here needs a card and skips without one.
 
 This file imports torch, numpy and the port only, so it also runs on a
 machine with a card and without JAX (tests/conftest.py imports JAX):
@@ -11,13 +11,14 @@ machine with a card and without JAX (tests/conftest.py imports JAX):
 import json
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
 import emme_tpu_torch as et
 from emme_tpu_torch.grid import Grid
-from emme_tpu_torch.ops import cuda_kappa, kernels
-from emme_tpu_torch.solvers import cuda_pic, eigen, pic
+from emme_tpu_torch.ops import cuda_kappa, cuda_spmv, kernels, sparse
+from emme_tpu_torch.solvers import cuda_pic, eigen, pic, sparse_eigen
 
 torch.set_num_threads(2)
 
@@ -178,3 +179,96 @@ def test_pic_auto_takes_single_launch(card):
     assert cuda_pic.LAST_LAUNCH == "single"
     assert cuda_pic.LAUNCHES["pic_mega"] == before + 1
     assert stats.is_cuda and bool(torch.isfinite(stats).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [16, 128])
+@pytest.mark.parametrize("r", [1, 16])
+@pytest.mark.parametrize("dtype,bar", [(torch.complex64, 1e-5),
+                                       (torch.complex128, 1e-12)])
+def test_bsr_spmv_matches_plain(card, bs, r, dtype, bar):
+    """K5 vs bsr_matvec_ref on a random banded operator with a dropped
+    block diagonal: within 1e-5 of scale in complex64, 1e-12 in
+    complex128; one launch counted per call."""
+    n = 4 * 128
+    rng = np.random.default_rng(bs + r)
+    M = rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n))
+    nb = n // bs
+    off = np.subtract.outer(np.arange(nb), np.arange(nb))
+    keep = (np.abs(off) <= 3) & (off != 2)
+    M = np.where(np.kron(keep, np.ones((bs, bs), bool)), M, 0.0)
+    M = M.astype(np.complex64 if dtype == torch.complex64 else np.complex128)
+    bsr = sparse.bdia_to_bsr(sparse.bdia_from_dense(M, block=bs, device=card))
+    assert bsr.data.dtype == dtype
+    shape = (n,) if r == 1 else (n, r)
+    x = torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape),
+                        dtype=dtype, device=card)
+    before = cuda_spmv.LAUNCHES
+    y = sparse.bsr_matvec(bsr, x)
+    torch.cuda.synchronize()
+    assert cuda_spmv.LAUNCHES == before + 1
+    ref = sparse.bsr_matvec_ref(bsr, x)
+    assert y.is_cuda and y.shape == shape and y.dtype == dtype
+    scale = float(ref.abs().max())
+    assert float((y - ref).abs().max()) <= bar * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bar", [(torch.complex64, 1e-5),
+                                       (torch.complex128, 1e-12)])
+def test_bsr_spmv_element_loads(card, dtype, bar):
+    """The r = 1 kernel's element-sized loads: an odd block (9) and an x
+    that is not 16-byte aligned (a view one element into its buffer)."""
+    rng = np.random.default_rng(3)
+    for bs, n in ((9, 72), (16, 64)):
+        M = rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n))
+        bsr = sparse.bsr_from_dense(M, block=bs, device=card)
+        bsr = sparse.BSROperator(data=bsr.data.to(dtype), col_idx=bsr.col_idx,
+                                 row_of=bsr.row_of, row_ptr=bsr.row_ptr,
+                                 n=n, block=bs)
+        buf = torch.as_tensor(rng.normal(size=n + 1) + 1j * rng.normal(
+            size=n + 1), dtype=dtype, device=card)
+        x = buf[1:]
+        y = sparse.bsr_matvec(bsr, x)
+        ref = sparse.bsr_matvec_ref(bsr, x)
+        torch.cuda.synchronize()
+        assert float((y - ref).abs().max()) <= bar * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_bsr_spmv_rejects_bad_input(card):
+    """The wrapper raises on a non-contiguous x or a dtype mismatch; it
+    never falls back to the plain version."""
+    M = np.eye(64, dtype=np.complex64)
+    bsr = sparse.bsr_from_dense(M, block=16, device=card)
+    x = torch.ones((64, 2), dtype=torch.complex64, device=card)
+    before = cuda_spmv.LAUNCHES
+    with pytest.raises(ValueError):
+        sparse.bsr_matvec(bsr, x.t().contiguous().t())
+    with pytest.raises(ValueError):
+        sparse.bsr_matvec(bsr, x.to(torch.complex128))
+    assert cuda_spmv.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_banded_solve_f32_tok128_through_kernels(card):
+    """The banded slice at n=128 on the card (m_krylov 8, spmv bsr): K5
+    carries the Arnoldi matvecs and the rate chain (8 + 1 + 50 launches),
+    K1 every assembly's kernel-table chunks, and omega lands within 1e-5 of
+    golden tok128."""
+    p = et.from_config(_cfg("tokamak", 128), dtype=torch.float32, device=card)
+    k1, k5 = cuda_kappa.LAUNCHES, cuda_spmv.LAUNCHES
+    stats = {}
+    om, vec, n_steps, state = sparse_eigen.solve(
+        p, -0.8 + 0.25j, tol=1e-5, m_krylov=8, spmv="bsr", stats=stats)
+    assert cuda_spmv.LAUNCHES - k5 == 8 + 1 + sparse_eigen.SPMV_RATE_REPS
+    grid = Grid.create(p.length, 128, dtype=torch.float32, device=card)
+    h, bs = stats["h"], stats["block"]
+    dx = 2.0 * float(p.length) / 127
+    chunks = sum(1 for _ in sparse_eigen.table_pair_chunks(
+        grid, min((h + 1) * bs - 1, 127), None,
+        kernels.tier_thresholds_ij(dx, 128), sparse_eigen.FUSED_CHUNK))
+    assert cuda_kappa.LAUNCHES - k1 == chunks * (4 + n_steps)
+    assert stats["spmv_route"] == "bsr" and state.M.data.is_cuda
+    assert vec.is_cuda and bool(torch.isfinite(vec).all())
+    assert abs(om - GOLDEN_TOK128) / abs(GOLDEN_TOK128) < 1e-5

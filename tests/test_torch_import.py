@@ -13,8 +13,11 @@ MODULES = [
     "emme_tpu_torch.ops.singularity", "emme_tpu_torch.ops.quadrature",
     "emme_tpu_torch.ops.bessel", "emme_tpu_torch.ops.kernels",
     "emme_tpu_torch.ops.cuda_kappa", "emme_tpu_torch.ops.linalg",
+    "emme_tpu_torch.ops.sparse", "emme_tpu_torch.ops.cuda_spmv",
+    "emme_tpu_torch.ops.banded",
     "emme_tpu_torch.solvers.eigen", "emme_tpu_torch.solvers.pic",
-    "emme_tpu_torch.solvers.cuda_pic",
+    "emme_tpu_torch.solvers.cuda_pic", "emme_tpu_torch.solvers.arnoldi",
+    "emme_tpu_torch.solvers.sparse_eigen",
 ]
 
 
