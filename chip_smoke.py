@@ -22,20 +22,30 @@ check exits non-zero:
 5. breakdown: one assembly, one trace solve and one SVD at n=1024, timed.
 6. build_pic: kernels K2, K3, K4 compiled from csrc/pic.cu (started in
    parallel with K1's build in phase 2).
-7. grid_sync_probe: the cooperative-launch attribute, K3's co-resident grid
-   and K4 at that grid, which must see every block's writes.
+7. grid_sync_probe: the cooperative-launch attribute, K3's launch shape
+   (co-resident grid, shared memory, registers) and K4 at that grid, which
+   must see every block's writes; K4's time beside the
+   same launch without its copies, and the cost of one grid barrier (the
+   launch without copies at 1 and at 1081 rounds).
 8. pic_stage_vs_plain: at the canonical size (tok1024, 1024 markers per
    cell, drift-center on, f32) one step of K2 with the first-stage quirk
    and one without, each stage against stage_ref on the same inputs (bars
-   2e-5 of scale, eta within 1 ulp); kernel, field and plain ms per stage.
+   2e-5 of scale, eta within 1 ulp); kernel, field and plain ms per stage;
+   the field reduce run twice on the same partials must repeat bit for bit.
 9. pic_mega_vs_stages: 8 steps of K3 (launch="single") against 8 steps of
    K2 (launch="stages") and the plain mega_ref from one state: stats 1e-5,
-   state 2e-5 (dc_pb 1e-4), eta bit-equal between K3 and K2.
+   state 2e-5 (dc_pb 1e-4), eta bit-equal between K3 and K2; K3 run twice
+   from the same state must repeat eta bit for bit (weights, field and
+   stats repeat only to rounding: the order of the shared-memory atomics
+   inside a block varies; whether they did repeat is printed).
 10. pic_slice: the canonical run cuda_pic.run(p, 1024, 180, 0.25) with
    launch="auto", twice, the second timed and counted: it must take K3, and
    its (omega, gamma) fit must land within 5 % / 10 % of golden
    pic_tok1024; the plain path (pic.run) from the same initial state must
    fit within 1 % of it.
+10b. pic_breakdown: at the canonical size, K3's time per stage with the
+   marker pass or the field reduce left out, the grid barriers' cost from
+   phase 7, K3's launch shape, and the share of K3's bound reached.
 11. build_spmv: kernel K5 compiled from csrc/spmv.cu (started in parallel
    with K1's build in phase 2); registers and spills from ptxas.
 12. spmv_vs_plain: K5 against bsr_matvec_ref on the tok8192 operator of
@@ -65,6 +75,18 @@ check exits non-zero:
    bf16 pass, float32 accumulation: a TPU's default precision); its omega
    must land within 1e-4 of the JAX package's recorded tok8192 value
    (bench.py:135-136), which phase 14's float32 omega misses.
+
+The kernels JSON gives every kernel its bound: the larger of the bytes it
+must move (each input read once, each output written once) over 3.35 TB/s
+and its float32 operations over 67 TFLOP/s (NVIDIA's H100 SXM data sheet),
+from this run's shapes and data.  The operations of a node of K1 and of a
+marker-stage of K2 / K3 are counted from the kernels' machine code
+(emme_tpu_torch/tools/sass_count.py, an FMA as two) on the path a node or
+marker executes: one side of each Bessel function's split, Taylor or
+asymptotic, never both, weighted by the share of this run's nodes and
+markers on each side; for K3 the stage body with J0 and the phase factor
+carried in.  The static count of both sides together stands beside it as
+static_flop_per_unit and is used in no bound.
 
 The last three lines are the kernels JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -116,6 +138,28 @@ CERT_BAR = 2e-6    # tests/test_sparse_eigen.py:56; BENCH_SPARSE.md:17 1.44e-6
 # tests/test_sparse_eigen.py:247-250
 SPMV_BARS = {"complex64": 1e-5, "complex128": 1e-12}
 K1_CHECK_PAIRS = 1 << 17   # pairs per tier section in banded_kernel_vs_plain
+# NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the
+# tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
+# float32 operations (FMA = 2, MUFU = 1) of one quadrature node of K1 and of
+# one marker-stage of K2 / K3 (drift-center on), from
+# emme_tpu_torch/tools/sass_count.py on CUDA 12.8: the kernel compiled with
+# the Taylor side of its Bessel functions alone, with the asymptotic side
+# alone, and ("static", used in no bound) with both as the package loads it.
+# K2: pic_stage_kernel<stage, first, true>; K3: one stage's marker loop of
+# pic_mega_kernel (J0 and the phase factor carried in); "0_first" is the
+# run's first stage.
+K1_FLOP_PER_NODE = {"taylor": 1071, "asymptotic": 935, "static": 1422}
+K2_FLOP_PER_MARKER_STAGE = {
+    "taylor": {"0_first": 720, "0": 940, "1": 940, "2": 946},
+    "asymptotic": {"0_first": 473, "0": 565, "1": 565, "2": 571},
+    "static": {"0_first": 877, "0": 1177, "1": 1177, "2": 1183}}
+K3_FLOP_PER_MARKER_STAGE = {
+    "taylor": {"0_first": 722, "0": 721, "1": 721, "2": 727},
+    "asymptotic": {"0_first": 474, "0": 474, "1": 474, "2": 480},
+    "static": {"0_first": 878, "0": 876, "1": 876, "2": 882}}
+BARRIER_ROUNDS = 1081   # K3's canonical run: two barriers a stage, and one
 
 
 def emit(phase, **fields):
@@ -178,9 +222,64 @@ def compare(p, eta_a, eta_b, omega, ms, quad, bar, torch, cuda_kappa):
                                               ms), torch)
     w_ms, _ = timed(lambda: cuda_kappa.kappa_pairs_fused(
         p, eta_a, eta_b, omega, ms=ms, quad=quad), torch)
+    nodes = int(eta_a.shape[0]) * int(mid.shape[1]) * order
+    asym = k1_asymptotic_share(torch, cuda_kappa, mid, halfw, pair, scal,
+                               order, every=16)
     return {"npairs": int(eta_a.shape[0]), "n_panels": int(mid.shape[1]),
             "order": order, "max_abs_err": max(errs), "scale": max(scales),
-            "kernel_ms": k_ms, "plain_ms": p_ms, "wrapper_ms": w_ms}
+            "kernel_ms": k_ms, "plain_ms": p_ms, "wrapper_ms": w_ms,
+            "nodes": nodes, "asymptotic_share": asym,
+            "flop": nodes * by_branch(K1_FLOP_PER_NODE, asym),
+            "bytes": nbytes(mid, halfw, pair, scal)
+            + 4 * int(eta_a.shape[0]) * 2 * len(ms)}
+
+
+def by_branch(table, asym_share, variant=None):
+    """Operations of one node or marker-stage: the Taylor path's count and
+    the asymptotic path's, weighted by the share on the asymptotic side."""
+    t, a = table["taylor"], table["asymptotic"]
+    if variant is not None:
+        t, a = t[variant], a[variant]
+    return t + asym_share * (a - t)
+
+
+def k1_asymptotic_share(torch, cuda_kappa, mid, halfw, pair, scal, order,
+                        every):
+    """The share of K1's quadrature nodes whose scaled Bessel functions take
+    the asymptotic side, |w|^2 = bi(eta) bi(eta') / |lambda|^2 > 144
+    (csrc/kappa.cu), on every ``every``-th pair: the plain version's node,
+    rotation and lambda arithmetic."""
+    mid, halfw, pair = mid[::every], halfw[::every], pair[::every]
+    x = torch.tensor(cuda_kappa._table_views(
+        cuda_kappa.kernel_tables(order))["x"][:order], device=mid.device)
+    t = torch.clamp_min(mid[:, :, None] + halfw[:, :, None] * x, 1e-6)
+    t = t.reshape(mid.shape[0], -1)
+    om_r, arc, qR, vt = scal[0], scal[2], scal[3], scal[4]
+    de, b1, ba, bb = (pair[:, k:k + 1] for k in range(4))
+    omi = -torch.sign(torch.where(om_r == 0, torch.ones_like(om_r), om_r))
+    y = t / arc
+    rinv = torch.rsqrt(1.0 + y * y)
+    c = 0.5 * vt * b1 / (qR * de)
+    lam2 = (1.0 + c * t * omi * y * rinv) ** 2 + (c * t * rinv) ** 2
+    return float((ba * bb / lam2 > 144.0).float().mean())
+
+
+def pic_asymptotic_share(torch, cuda_pic, params, arrs):
+    """The share of markers whose J0 / J1 take the asymptotic side,
+    (v_perp / vt) sqrt(b_theta (1 + (shat eta)^2)) > 8 (csrc/pic.cu)."""
+    vt, bt, shat = (float(params[k]) for k in (cuda_pic.P_VT, cuda_pic.P_BT,
+                                               cuda_pic.P_SHAT))
+    arg = arrs["v_perp"] / vt * torch.sqrt(
+        bt * (1.0 + (shat * arrs["eta"]) ** 2))
+    return float((arg.abs() > 8.0).float().mean())
+
+
+def k3_flop(asym_share, markers, n_steps):
+    """Operations of a K3 run: the first stage once, then stage 0, 1, 2."""
+    per = {v: by_branch(K3_FLOP_PER_MARKER_STAGE, asym_share, v)
+           for v in ("0_first", "0", "1", "2")}
+    return markers * (per["0_first"] + (n_steps - 1) * per["0"]
+                      + n_steps * (per["1"] + per["2"]))
 
 
 def event_ms(fn, torch, reps=20):
@@ -195,6 +294,21 @@ def event_ms(fn, torch, reps=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, flops):
+    """The least time in ms the card could take: bytes over the memory
+    rate or float32 operations over the float32 rate, whichever is
+    larger."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": n_bytes, "bound_flop": flops}
 
 
 def rel_err(a, b):
@@ -214,6 +328,7 @@ def pic_stage_phase(torch, cuda_pic, fs, qn, arrs, field, card):
     names = ("vel_re", "vel_im", "eta", "w_re", "w_im", "field_re",
              "field_im")
     errs, k_ms, f_ms, p_ms = [], [], [], []
+    moved, flops = 0, 0
     for first_step in (True, False):
         vel_prev = None
         for s in range(3):
@@ -234,21 +349,39 @@ def pic_stage_phase(torch, cuda_pic, fs, qn, arrs, field, card):
             errs.append(err)
             km, (*outs, partials) = timed(lambda: cuda_pic._launch_stage(
                 s, first, fs.dc, fs.params, *field, arrs, vel_prev), torch)
-            fm, _ = timed(lambda: cuda_pic._launch_field(partials, qn), torch)
+            fm, fld = timed(lambda: cuda_pic._launch_field(partials, qn),
+                            torch)
+            again = cuda_pic._launch_field(partials, qn)
+            check(all(torch.equal(a, b) for a, b in zip(fld, again)),
+                  f"K2 stage {s}: the field reduce repeats bit for bit")
             pm, _ = timed(lambda: cuda_pic.stage_ref(*args), torch)
+            ins = [*field, qn, *arrs.values(), *(vel_prev or ())]
+            asym = pic_asymptotic_share(torch, cuda_pic, fs.params, arrs)
+            bnd = bound(nbytes(*ins, *got), int(arrs["eta"].shape[0])
+                        * by_branch(K2_FLOP_PER_MARKER_STAGE, asym,
+                                    "0_first" if first else str(s)))
+            moved += bnd["bound_bytes"]
+            flops += bnd["bound_flop"]
             k_ms.append(km)
             f_ms.append(fm)
             p_ms.append(pm)
             emit("pic_stage_vs_plain", stage=s, first=first,
                  markers=int(arrs["eta"].shape[0]), max_abs_err=err,
                  eta_bit_equal=bool(torch.equal(got[2], ref[2])),
-                 stage_ms=km, field_ms=fm, plain_ms=pm, card=card)
+                 stage_ms=km, field_ms=fm, plain_ms=pm,
+                 partials=list(partials.shape), field_repeat_bit_equal=True,
+                 asymptotic_share=asym, **bnd, card=card)
             if s == 1:
                 vel_prev = got[:2]
             arrs = dict(arrs, eta=got[2], w_re=got[3], w_im=got[4])
             field = got[5:]
+    total = bound(moved, flops)
     return {"max_abs_err": max(errs), "ms": sum(k_ms) + sum(f_ms),
-            "plain_ms": sum(p_ms)}
+            "plain_ms": sum(p_ms), "bound_ms": total["bound_ms"],
+            "bound_by": total["bound_by"], "library_ms": None,
+            "stages": len(k_ms),
+            "flop_per_unit": flops / (len(k_ms) * int(arrs["eta"].shape[0])),
+            "static_flop_per_unit": K2_FLOP_PER_MARKER_STAGE["static"]["1"]}
 
 
 def pic_phases(torch, build_rec, card):
@@ -262,27 +395,39 @@ def pic_phases(torch, build_rec, card):
 
     emit_build("build_pic", build_rec)   # 6. build_pic
 
-    p = from_config(load_cfg("tokamak", 1024), dtype=f32, device=dev)
+    p = from_config(load_cfg("tokamak", 1024), dtype=f32)
+    check(p.device.type == "cuda", "from_config lands on the card by default")
     check(p.drift_center_transformation_switch, "canonical case is dc on")
     m = PIC_MPC * p.npoints
 
-    # 7. grid_sync_probe
+    # 7. grid_sync_probe, at K3's launch shape
     grid = cuda_pic.mega_grid(dev, p.npoints, True)
+    check(grid["cooperative"], "the device supports cooperative launch")
+    check(grid["grid"] == grid["sms"], "K3 fits one block a SM")
     x = torch.rand((grid["grid"], cuda_pic.THREADS), device=dev)
     probe = cuda_pic.grid_sync_probe(x)
     probe_ref = cuda_pic.grid_sync_probe_ref(x)
     torch.cuda.synchronize()
     probe_ok = bool(torch.equal(probe, probe_ref))
-    check(grid["cooperative"], "the device supports cooperative launch")
-    check(grid["blocks_per_sm"] >= 1, "K3 fits one block per SM")
     check(probe_ok, "grid-sync probe: every block saw every block's writes")
-    probe_ms, _ = timed(lambda: cuda_pic.grid_sync_probe(x), torch)
-    probe_plain_ms, _ = timed(lambda: cuda_pic.grid_sync_probe_ref(x), torch)
+    probe_ms = event_ms(lambda: cuda_pic.grid_sync_probe(x), torch)
+    probe_plain_ms = event_ms(lambda: cuda_pic.grid_sync_probe_ref(x), torch)
+    # the same launch without its loads and stores, and one grid barrier
+    floor_ms = event_ms(lambda: cuda_pic.grid_sync_probe(x, copy=False),
+                        torch)
+    one_ms = event_ms(lambda: cuda_pic.grid_sync_probe(
+        x, rounds=1, copy=False), torch)
+    many_ms = event_ms(lambda: cuda_pic.grid_sync_probe(
+        x, rounds=BARRIER_ROUNDS, copy=False), torch, reps=5)
+    barrier_us = 1e3 * (many_ms - one_ms) / (BARRIER_ROUNDS - 1)
+    probe_bound = bound(nbytes(x, probe), x.numel())
     emit("grid_sync_probe", cooperative_launch=grid["cooperative"],
-         blocks_per_sm=grid["blocks_per_sm"], sms=grid["sms"],
-         grid=grid["grid"], threads=cuda_pic.THREADS,
+         **{k: grid[k] for k in ("sms", "grid", "threads", "partials",
+                                 "smem", "registers")},
          rounds=cuda_pic.PROBE_ROUNDS, ok=probe_ok, ms=probe_ms,
-         plain_ms=probe_plain_ms, card=card)
+         plain_ms=probe_plain_ms, no_copy_ms=floor_ms,
+         barrier_rounds=[1, BARRIER_ROUNDS], barrier_ms=[one_ms, many_ms],
+         us_per_grid_barrier=barrier_us, **probe_bound, card=card)
 
     # 8. pic_stage_vs_plain, from a seeded state at the canonical size
     s0 = pic.init_state(p, PIC_MPC, torch.Generator(device=dev).manual_seed(0),
@@ -321,6 +466,20 @@ def pic_phases(torch, build_rec, card):
         check(state_errs[name] < bar,
               f"K3 vs K2 {name} {state_errs[name]:.3e} < {bar}")
     check(torch.equal(s_k3.eta, s_k2.eta), "K3 and K2 eta bit-equal")
+    # K3 again from the same state: eta repeats bit for bit; the rest only
+    # to rounding (shared-memory atomics inside a block), so it is reported
+    st_again, s_again, _ = cuda_pic.run(p, PIC_MPC, n9, PIC_DT, state=s0,
+                                        launch="single")
+    check(torch.equal(s_again.eta, s_k3.eta), "K3 twice: eta bit-equal")
+    repeat = {"eta": True, "stats": bool(torch.equal(st_again, st_k3)),
+              **{name: bool(torch.equal(getattr(s_again, name),
+                                        getattr(s_k3, name)))
+                 for name in ("weight", "field")}}
+    for name, bar in PIC_BARS.items():
+        err = rel_err(getattr(s_again, name), getattr(s_k3, name))
+        check(err < bar, f"K3 twice {name} {err:.3e} < {bar}")
+    check(cuda_pic.LAST_MEGA_GRID == grid,
+          f"K3 ran at the probed launch shape: {cuda_pic.LAST_MEGA_GRID}")
     k3_vs_plain = [(s_k3.eta, ref9[0]), (s_k3.weight.real, ref9[1]),
                    (s_k3.weight.imag, ref9[2]), (s_k3.field.real, ref9[3]),
                    (s_k3.field.imag, ref9[4]), (st_k3, ref9[5])]
@@ -339,7 +498,9 @@ def pic_phases(torch, build_rec, card):
     emit("pic_mega_vs_stages", steps=n9, markers=m, grid=grid["grid"],
          stats_rel_err=rel_err(st_k3, st_k2),
          stats_bit_equal=bool(torch.equal(st_k3, st_k2)),
-         eta_bit_equal=True, state_rel_err=state_errs,
+         eta_bit_equal=True, repeat_bit_equal=repeat,
+         partials=grid["partials"],
+         state_rel_err=state_errs,
          k3_vs_plain_max_abs_err=k3_err, k3_ms=k3_ms, k2_run_ms=k2_ms,
          plain_ms=plain_ms, k2_launches=k2_launches, card=card)
 
@@ -405,6 +566,38 @@ def pic_phases(torch, build_rec, card):
     check(max(agree) < 0.01, f"kernel and plain fits agree to 1 %: {agree}")
     check(all(math.isfinite(v) for v in (om.real, om.imag)), "finite fit")
 
+    # 10b. pic_breakdown: K3's stage at the canonical size, part by part
+    n_stages = 3 * PIC_STEPS
+    part_us = {}
+    for name, parts in (("all", 3), ("no_reduce", 1), ("no_markers", 2),
+                        ("neither", 0)):
+        ms_, _ = timed(lambda: cuda_pic._launch_mega(
+            True, fs.params, *field_c, qn, arrs_c, PIC_STEPS, parts=parts),
+            torch)
+        part_us[name] = 1e3 * ms_ / n_stages
+    asym_c = pic_asymptotic_share(torch, cuda_pic, fs.params, arrs_c)
+    k3_run_bound = bound(
+        nbytes(*field_c, qn, *arrs_c.values(), arrs_c["eta"], arrs_c["w_re"],
+               arrs_c["w_im"], *field_c, stats),
+        k3_flop(asym_c, m, PIC_STEPS))
+    emit("pic_breakdown", case="canonical run, K3", stages=n_stages,
+         us_per_stage=part_us["all"],
+         marker_pass_us=part_us["all"] - part_us["no_markers"],
+         field_reduce_us=part_us["all"] - part_us["no_reduce"],
+         two_grid_barriers_us=2 * barrier_us,
+         rest_us=part_us["neither"] - 2 * barrier_us,
+         parts_us=part_us, launch_shape=grid,
+         markers_per_thread=m / (grid["grid"] * grid["threads"]),
+         asymptotic_share=asym_c,
+         flop_per_marker_stage=k3_run_bound["bound_flop"] / (m * n_stages),
+         static_flop_per_marker_stage=K3_FLOP_PER_MARKER_STAGE["static"],
+         k3_ms=k3_run_ms, **k3_run_bound,
+         share_of_bound=k3_run_bound["bound_ms"] / k3_run_ms, card=card)
+
+    k3_bound = bound(
+        nbytes(*field0, qn, *arrs0.values(), *(t for t, _ in k3_vs_plain)),
+        k3_flop(pic_asymptotic_share(torch, cuda_pic, fs.params, arrs0), m,
+                n9))
     src, rep = "emme_tpu_torch/csrc/pic.cu", "emme_tpu/solvers/pallas_pic.py"
     return [
         {"name": "pic_stage", "route": "cuda", "source": src,
@@ -415,12 +608,20 @@ def pic_phases(torch, build_rec, card):
          "replaces": f"{rep}:438", "launches": launches["pic_mega"],
          "launches_from": "cuda_pic.run(launch='auto'), canonical run",
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": plain_ms,
-         "steps": n9},
+         "bound_ms": k3_bound["bound_ms"], "bound_by": k3_bound["bound_by"],
+         "library_ms": None, "steps": n9,
+         "flop_per_unit": k3_bound["bound_flop"] / (m * 3 * n9),
+         "static_flop_per_unit": K3_FLOP_PER_MARKER_STAGE["static"]["1"],
+         "canonical_run_ms": k3_run_ms,
+         "canonical_run_bound_ms": k3_run_bound["bound_ms"]},
         {"name": "grid_sync_probe", "route": "cuda", "source": src,
          "replaces": f"{rep}:621", "launches": launches["grid_sync_probe"],
          "launches_from": "cuda_pic.run(launch='auto'), canonical run",
          "max_abs_err": float((probe - probe_ref).abs().max()),
-         "ms": probe_ms, "plain_ms": probe_plain_ms},
+         "ms": probe_ms, "plain_ms": probe_plain_ms,
+         "bound_ms": probe_bound["bound_ms"],
+         "bound_by": probe_bound["bound_by"], "library_ms": None,
+         "no_copy_ms": floor_ms},
     ]
 
 
@@ -453,6 +654,20 @@ def compare_f64(p, eta_a, eta_b, omega, quad, torch, cuda_kappa):
             "kernel_ms": k_ms, "plain_ms": p_ms}
 
 
+def library_spmv_ms(torch, bsr, x, ref, tol):
+    """The time of PyTorch's own sparse BSR product on the same operator
+    and x (one library call, used nowhere in the port)."""
+    lib = torch.sparse_bsr_tensor(bsr.row_ptr.to(torch.int64),
+                                  bsr.col_idx.to(torch.int64), bsr.data,
+                                  size=(bsr.n, bsr.n), check_invariants=False)
+    cols = x if x.dim() == 2 else x[:, None]
+    out = lib @ cols
+    torch.cuda.synchronize()
+    check(float((out.reshape(ref.shape) - ref).abs().max()) <= tol,
+          "the library's BSR product agrees with the plain version")
+    return event_ms(lambda: lib @ cols, torch)
+
+
 def spmv_compare(torch, sparse, cuda_spmv, op, x, bar):
     """K5 vs its plain version (and bdia_matvec) on one operator and x:
     error, scale and device times."""
@@ -471,12 +686,17 @@ def spmv_compare(torch, sparse, cuda_spmv, op, x, bar):
     k_ms = event_ms(lambda: cuda_spmv.bsr_matvec(bsr, x), torch)
     p_ms = event_ms(lambda: sparse.bsr_matvec_ref(bsr, x), torch)
     d_ms = event_ms(lambda: sparse.bdia_matvec(op, x), torch)
-    nbytes = bsr.data.numel() * bsr.data.element_size()
-    return {"r": 1 if x.dim() == 1 else int(x.shape[1]),
+    stored = nbytes(bsr.data)
+    r = 1 if x.dim() == 1 else int(x.shape[1])
+    # a complex multiply-add is 8 real operations
+    bnd = bound(nbytes(bsr.data, bsr.col_idx, bsr.row_ptr, x, got),
+                8 * bsr.data.numel() * r)
+    return {"r": r, **bnd, "library_ms": library_spmv_ms(torch, bsr, x, ref,
+                                                         bar * scale),
             "dtype": str(op.data.dtype).removeprefix("torch."),
             "nnzb": bsr.nnzb, "block": bsr.block, "max_abs_err": err,
             "scale": scale, "kernel_ms": k_ms, "plain_ms": p_ms,
-            "bdia_ms": d_ms, "kernel_gb_per_s": nbytes / k_ms / 1e6}
+            "bdia_ms": d_ms, "kernel_gb_per_s": stored / k_ms / 1e6}
 
 
 def tpu_precision_solve(torch, banded, solve):
@@ -535,12 +755,14 @@ def banded_phases(torch, build_rec, card):
     emit_build("build_spmv", build_rec, card=card)   # 11. build_spmv
 
     # the tok8192 operator of the slice, at the seed
-    p = from_config(load_cfg("tokamak", N_BAND), dtype=f32, device=dev)
-    grid = Grid.create(p.length, N_BAND, dtype=f32, device=dev)
+    p = from_config(load_cfg("tokamak", N_BAND), dtype=f32)
+    check(p.device.type == "cuda", "from_config lands on the card by default")
+    grid = Grid.create(p.length, N_BAND, dtype=f32)
+    check(grid.eta.is_cuda, "Grid.create lands on the card by default")
     bs = se.pick_block(N_BAND)
     h = se.band_halfwidth(p, grid, bs, BAND_KW["band_deta"])
     de_max = (h + 1) * bs - 1
-    cband = singularity_coeff_band(N_BAND, de_max, dtype=f32, device=dev)
+    cband = singularity_coeff_band(N_BAND, de_max, dtype=f32)
     tiers = kernels.tier_thresholds_ij(
         2.0 * float(p.length) / (N_BAND - 1), N_BAND)
     seed = torch.tensor(BAND_GUESS, dtype=torch.complex64, device=dev)
@@ -558,12 +780,11 @@ def banded_phases(torch, build_rec, card):
                                  SPMV_BARS["complex64"]))
         emit("spmv_vs_plain", case=f"tok{N_BAND} band_deta 10", **rows[-1],
              card=card)
-    p1 = from_config(load_cfg("tokamak", N_TOK), dtype=f32, device=dev)
-    g1 = Grid.create(p1.length, N_TOK, dtype=f32, device=dev)
+    p1 = from_config(load_cfg("tokamak", N_TOK), dtype=f32)
+    g1 = Grid.create(p1.length, N_TOK, dtype=f32)
     h1 = se.band_halfwidth(p1, g1, 128, se.DEFAULT_BAND_DETA)
     op1 = se.assemble_bdia(
-        p1, g1, singularity_coeff_band(N_TOK, (h1 + 1) * 128 - 1, dtype=f32,
-                                       device=dev),
+        p1, g1, singularity_coeff_band(N_TOK, (h1 + 1) * 128 - 1, dtype=f32),
         torch.tensor(GUESS, dtype=torch.complex64, device=dev), h1, 128,
         tiers=kernels.tier_thresholds_ij(2.0 * float(p1.length) / (N_TOK - 1),
                                          N_TOK), fused=True)
@@ -618,7 +839,7 @@ def banded_phases(torch, build_rec, card):
                      / torch.linalg.vector_norm(M.data))
     # the untruncated operator: the dense float32 trace secant at n=8192
     # (its own assembly and LU), from the banded omega, as in eigen.solve
-    coeff = singularity_coeff_matrix(N_BAND, dtype=f32, device=dev)
+    coeff = singularity_coeff_matrix(N_BAND, dtype=f32)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sd = eigen.init_state(p, grid, coeff, state.omega, chunk=16384,
@@ -667,13 +888,20 @@ def banded_phases(torch, build_rec, card):
     asm = lambda: se.assemble_bdia(p, grid, cband, state.omega, h, bs,  # noqa: E731
                                    tiers=tiers, fused=True)
     asm_ms, _ = timed(asm, torch)
-    k1_ms = 0.0
+    k1_ms, k1_nodes, k1_bytes, k1_flop = 0.0, 0, 0, 0.0
     for ea, eb, q in se.table_pair_chunks(grid, de_max, None, tiers,
                                           se.FUSED_CHUNK):
         args = cuda_kappa._prepare(p, ea, eb, state.omega, q)
         k1_ms += event_ms(lambda: cuda_kappa._launch(*args, (0,)), torch,
                           reps=1)
+        npairs, n_panels = args[0].shape
+        k1_nodes += npairs * n_panels * args[4]
+        k1_bytes += nbytes(*args[:4]) + 8 * npairs
+        k1_flop += npairs * n_panels * args[4] * by_branch(
+            K1_FLOP_PER_NODE, k1_asymptotic_share(torch, cuda_kappa, *args,
+                                                  every=64))
         del args
+    k1_bound = bound(k1_bytes, k1_flop)
     lu_ms, lu = timed(lambda: banded.banded_lu(M), torch)
     selinv_ms, _ = timed(lambda: banded.banded_trace_product(
         banded.banded_selected_inverse(lu), state.dM), torch)
@@ -683,7 +911,10 @@ def banded_phases(torch, build_rec, card):
     null_ms, _ = timed(lambda: se._null_vector(banded.banded_lu(M), N_BAND,
                                                M.data.dtype, iters=3), torch)
     emit("banded_breakdown", case=f"tok{N_BAND}", assembly_ms=asm_ms,
-         k1_ms_per_assembly=k1_ms, banded_lu_ms=lu_ms,
+         k1_ms_per_assembly=k1_ms, k1_nodes_per_assembly=k1_nodes,
+         k1_bound_ms=k1_bound["bound_ms"], k1_bound_by=k1_bound["bound_by"],
+         k1_flop_per_node=k1_flop / k1_nodes,
+         banded_lu_ms=lu_ms,
          selected_inverse_and_trace_ms=selinv_ms, banded_solve_ms=solve_ms,
          arnoldi_stage_ms=arn_ms, null_vector_ms=null_ms, card=card)
     del lu, state, M
@@ -734,6 +965,8 @@ def banded_phases(torch, build_rec, card):
                               "spmv bsr)",
              "max_abs_err": max(r["max_abs_err"] for r in rows),
              "ms": k5["kernel_ms"], "plain_ms": k5["plain_ms"],
+             "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+             "library_ms": k5["library_ms"],
              "ms_at": f"tok{N_BAND}, r = 1, complex64"},
             {"launches": k1_launches,
              "max_abs_err": max(r["max_abs_err"] for r in k1_rows)})
@@ -775,8 +1008,10 @@ def main():
     f32 = torch.float32
 
     # 3. kernel vs plain
-    p = from_config(load_cfg("tokamak", N_TOK), dtype=f32, device=dev)
-    grid = Grid.create(p.length, p.npoints, dtype=f32, device=dev)
+    p = from_config(load_cfg("tokamak", N_TOK), dtype=f32)
+    check(p.device.type == "cuda", "from_config lands on the card by default")
+    grid = Grid.create(p.length, p.npoints, dtype=f32)
+    check(grid.eta.is_cuda, "Grid.create lands on the card by default")
     tiers = kernels.tier_thresholds_ij(2.0 * float(p.length) / (p.npoints - 1),
                                        p.npoints)
     groups = eigen.pair_plan(p.npoints, tiers, str(grid.eta.device))["groups"]
@@ -788,8 +1023,8 @@ def main():
                     torch, cuda_kappa)
         rows.append(r)
         emit("kernel_vs_plain", case=f"tok{N_TOK}", tier=t, ms_moments=[0], **r)
-    ps = from_config(load_cfg("stellarator", N_STEL), dtype=f32, device=dev)
-    gs = Grid.create(ps.length, ps.npoints, dtype=f32, device=dev)
+    ps = from_config(load_cfg("stellarator", N_STEL), dtype=f32)
+    gs = Grid.create(ps.length, ps.npoints, dtype=f32)
     iu, ju = torch.triu_indices(ps.npoints, ps.npoints, 1, device=dev)
     r_em = compare(ps, gs.eta[iu], gs.eta[ju],
                    torch.tensor(-1.656 + 2.49j, dtype=torch.complex64,
@@ -834,7 +1069,7 @@ def main():
          launches=launches, tiers=len(groups), residual=residual, card=card)
 
     # 5. breakdown of one step's parts at n=1024
-    coeff = singularity_coeff_matrix(p.npoints, dtype=f32, device=dev)
+    coeff = singularity_coeff_matrix(p.npoints, dtype=f32)
     asm_ms, _ = timed(lambda: eigen.assemble_matrix(
         p, grid, coeff, state.omega, None, 16384, tiers, True), torch)
     lin_ms, _ = timed(lambda: linalg.complex_solve_trace(M, state.dM),
@@ -847,6 +1082,8 @@ def main():
     pic_kernels = pic_phases(torch, builds["pic"], card)
     k5, k1_banded = banded_phases(torch, builds["spmv"], card)
 
+    k1_bound = bound(sum(r["bytes"] for r in rows),
+                     sum(r["flop"] for r in rows))
     kernels_line = {"kernels": [{
         "name": "kappa_pairs",
         "route": "cuda",
@@ -860,6 +1097,11 @@ def main():
                            + [r_em["max_abs_err"], k1_banded["max_abs_err"]]),
         "ms": sum(r["kernel_ms"] for r in rows),
         "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": k1_bound["bound_ms"], "bound_by": k1_bound["bound_by"],
+        "library_ms": None, "nodes": sum(r["nodes"] for r in rows),
+        "flop_per_unit": k1_bound["bound_flop"] / sum(r["nodes"] for r in rows),
+        "static_flop_per_unit": K1_FLOP_PER_NODE["static"],
+        "ms_at": f"one tok{N_TOK} assembly, all tiers",
     }] + pic_kernels + [k5]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)

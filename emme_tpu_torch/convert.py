@@ -4,7 +4,8 @@
 ``SparseEigenState`` fields and its BDIA operators' (re, im) planes as
 device arrays; handed over as numpy arrays (``np.asarray(getattr(p, f))``)
 they build the port's counterparts here, so both packages can compute from
-the same inputs.
+the same inputs.  ``device=None`` is the CUDA card, as in ``from_config``;
+the CPU is asked for by name.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .params import DYNAMIC_FIELDS, STATIC_FIELDS, Params
+from .params import DYNAMIC_FIELDS, STATIC_FIELDS, Params, default_device
 from .ops.sparse import BDIAOperator
 from .solvers.eigen import EigenState
 from .solvers.pic import PICState
@@ -20,7 +21,7 @@ from .solvers.sparse_eigen import SparseEigenState
 
 
 def params_from_arrays(fields: dict, static: dict, dtype=torch.float64,
-                       device="cpu") -> Params:
+                       device=None) -> Params:
     """``Params`` from its physical scalars ``fields`` (name -> array-like,
     every name of ``DYNAMIC_FIELDS``) and structural settings ``static``
     (name -> value, every name of ``STATIC_FIELDS``)."""
@@ -28,6 +29,7 @@ def params_from_arrays(fields: dict, static: dict, dtype=torch.float64,
                if k not in fields and k not in static]
     if missing:
         raise KeyError(f"missing Params fields: {missing}")
+    device = default_device(device)
     kwargs = {k: torch.as_tensor(float(np.asarray(fields[k])),
                                  dtype=dtype, device=device)
               for k in DYNAMIC_FIELDS}
@@ -35,9 +37,11 @@ def params_from_arrays(fields: dict, static: dict, dtype=torch.float64,
     return Params(**kwargs)
 
 
-def state_from_arrays(omega, d_omega, M, dM, device="cpu") -> EigenState:
+def state_from_arrays(omega, d_omega, M, dM, device=None) -> EigenState:
     """``EigenState`` from array-likes; complex dtypes are kept as given
     (complex64 stays complex64, complex128 stays complex128)."""
+    device = default_device(device)
+
     def t(x):
         return torch.tensor(np.asarray(x), device=device)
     return EigenState(omega=t(omega), d_omega=t(d_omega), M=t(M), dM=t(dM))
@@ -46,12 +50,13 @@ def state_from_arrays(omega, d_omega, M, dM, device="cpu") -> EigenState:
 _PIC_COMPLEX = ("weight", "dc_pb", "field")
 
 
-def pic_state_from_arrays(fields: dict, device="cpu",
+def pic_state_from_arrays(fields: dict, device=None,
                           dtype=torch.float64) -> PICState:
     """The port's ``PICState`` from a JAX ``PICState`` handed over as
     arrays (name -> array-like, every field of ``PICState``): real fields
     in ``dtype``, weight, dc_pb and field in its complex counterpart."""
     cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
+    device = default_device(device)
     return PICState(**{
         name: torch.tensor(np.asarray(fields[name]), device=device,
                            dtype=cdtype if name in _PIC_COMPLEX else dtype)
@@ -59,7 +64,7 @@ def pic_state_from_arrays(fields: dict, device="cpu",
 
 
 def bdia_from_arrays(data, offsets, n: int, block: int,
-                     device="cpu") -> BDIAOperator:
+                     device=None) -> BDIAOperator:
     """The port's complex ``BDIAOperator`` from a JAX one's (ndiag, nb, 2,
     bs, bs) (re, im) planes: float64 planes give complex128, float32
     planes complex64."""
@@ -68,16 +73,19 @@ def bdia_from_arrays(data, offsets, n: int, block: int,
         else torch.complex64
     cplx = torch.complex(torch.tensor(planes[:, :, 0]),
                          torch.tensor(planes[:, :, 1]))
-    return BDIAOperator(data=cplx.to(device=device, dtype=cdtype),
+    return BDIAOperator(data=cplx.to(device=default_device(device),
+                                     dtype=cdtype),
                         offsets=tuple(int(d) for d in offsets), n=int(n),
                         block=int(block))
 
 
 def sparse_state_from_arrays(omega, d_omega, M, dM,
-                             device="cpu") -> SparseEigenState:
+                             device=None) -> SparseEigenState:
     """The port's ``SparseEigenState`` from a JAX one: ``omega`` and
     ``d_omega`` array-likes (complex, dtype kept), ``M`` and ``dM`` each a
     (data, offsets, n, block) tuple as ``bdia_from_arrays`` takes."""
+    device = default_device(device)
+
     def t(x):
         return torch.tensor(np.asarray(x), device=device)
     return SparseEigenState(omega=t(omega), d_omega=t(d_omega),

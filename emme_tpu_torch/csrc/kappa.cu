@@ -44,6 +44,14 @@ constexpr float kSafeExpCutoff = -40.0f;
 constexpr float kSplit2 = 144.0f;           // |w|^2 <= 12^2 -> Taylor
 constexpr float kTwoPi = 6.28318530717958647692f;
 
+// Which side of the scaled Bessel functions' |w| <= 12 split is compiled: 0,
+// both (every build the package loads); 1, the Taylor sums alone; 2, the
+// asymptotic sums alone.  1 and 2 exist to count the instructions of each
+// path (emme_tpu_torch/tools/sass_count.py) and are never loaded.
+#ifndef EMME_BESSEL_BRANCH
+#define EMME_BESSEL_BRANCH 0
+#endif
+
 // Constant tables, filled by the caller (emme_tpu_torch/ops/cuda_kappa.py
 // kernel_tables) from the same float32 values the plain version uses.
 struct Tables {
@@ -113,7 +121,8 @@ __device__ __forceinline__ void bessel_i01_scaled(cfloat z, const Tables& tab,
   const float wi = neg ? -z.i : z.i;
   const float aw2 = wr * wr + wi * wi;
   const cfloat s = cexp_f(-wr, -wi);       // e^{-w}
-  if (aw2 <= kSplit2) {
+  if (EMME_BESSEL_BRANCH == 1 ||
+      (EMME_BESSEL_BRANCH == 0 && aw2 <= kSplit2)) {
     // Taylor branch, scaled by e^{-w}
     const cfloat q = {0.25f * (wr * wr - wi * wi), 0.5f * wr * wi};
     cfloat t0 = {1.0f, 0.0f};

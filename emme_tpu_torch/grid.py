@@ -5,6 +5,8 @@ from typing import Any
 
 import torch
 
+from .params import default_device
+
 
 @dataclass(frozen=True)
 class Grid:
@@ -14,7 +16,8 @@ class Grid:
     eta: Any    # (npoints,) nodes
 
     @classmethod
-    def create(cls, length, npoints: int, dtype=torch.float64, device="cpu"):
+    def create(cls, length, npoints: int, dtype=torch.float64, device=None):
+        device = default_device(device)   # None: the CUDA card
         length = torch.as_tensor(length, dtype=dtype, device=device)
         dx = 2.0 * length / (npoints - 1)
         eta = -length + dx * torch.arange(npoints, dtype=dtype, device=device)

@@ -5,6 +5,8 @@ end-correction on the first/last columns."""
 import numpy as np
 import torch
 
+from ..params import default_device
+
 _COEFF = np.array([
     0.0,
     2.951388888888883,
@@ -18,8 +20,10 @@ _COEFF = np.array([
 SINGULAR_BAND_HALF_WIDTH = 5
 
 
-def singularity_coeff_matrix(n: int, dtype=torch.float64, device="cpu"):
-    """Dense (n, n) coefficient matrix, built on ``device``."""
+def singularity_coeff_matrix(n: int, dtype=torch.float64, device=None):
+    """Dense (n, n) coefficient matrix, built on ``device`` (None: the CUDA
+    card, ``params.default_device``)."""
+    device = default_device(device)
     i = torch.arange(n, device=device)
     diff = (i[:, None] - i[None, :]).abs()
     coeff = torch.as_tensor(_COEFF, dtype=dtype, device=device)
@@ -31,12 +35,14 @@ def singularity_coeff_matrix(n: int, dtype=torch.float64, device="cpu"):
 
 
 def singularity_coeff_band(n: int, h_el: int, dtype=torch.float64,
-                           device="cpu"):
-    """Banded storage of the same coefficients, built on ``device``:
+                           device=None):
+    """Banded storage of the same coefficients, built on ``device`` (None:
+    the CUDA card):
     (n, 2*h_el+1) with band[i, dj + h_el] = coeff[i, i + dj].  O(n * band)
     memory -- the dense (n, n) matrix never exists (used by the
     direct-to-BDIA assembly).  At n=8192, h_el=2175 it is 142 MB in
     float32."""
+    device = default_device(device)
     dj = torch.arange(-h_el, h_el + 1, device=device)
     adj = dj.abs()
     coeff = torch.as_tensor(_COEFF, dtype=dtype, device=device)

@@ -26,6 +26,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..params import default_device
 from . import cuda_spmv
 
 DEFAULT_BLOCK = 128
@@ -102,9 +103,11 @@ def _dense_blocks(M, block: int):
 
 
 def bsr_from_dense(M, block: int = DEFAULT_BLOCK, threshold: float = 0.0,
-                   device="cpu") -> BSROperator:
+                   device=None) -> BSROperator:
     """Host-side conversion: keep blocks whose max |entry| > threshold *
-    max|M| (threshold 0 keeps every block)."""
+    max|M| (threshold 0 keeps every block).  The operator lands on
+    ``device`` (None: the CUDA card, ``params.default_device``)."""
+    device = default_device(device)
     M, n, nb, blocks = _dense_blocks(M, block)
     mags = np.abs(blocks).max(axis=(2, 3))
     keep = mags > threshold * (np.abs(M).max() + 1e-300)
@@ -122,9 +125,11 @@ def bsr_from_dense(M, block: int = DEFAULT_BLOCK, threshold: float = 0.0,
 
 
 def bdia_from_dense(M, block: int = DEFAULT_BLOCK, threshold: float = 0.0,
-                    device="cpu") -> BDIAOperator:
+                    device=None) -> BDIAOperator:
     """Host-side conversion: keep every block diagonal holding at least one
-    block whose max |entry| > threshold * max|M|."""
+    block whose max |entry| > threshold * max|M|.  The operator lands on
+    ``device`` (None: the CUDA card, ``params.default_device``)."""
+    device = default_device(device)
     M, n, nb, blocks = _dense_blocks(M, block)
     mags = np.abs(blocks).max(axis=(2, 3))
     cut = threshold * (np.abs(M).max() + 1e-300)
@@ -237,9 +242,10 @@ def save_bdia_dump(op: BDIAOperator, path):
         }, f, indent=1)
 
 
-def load_bdia_dump(path, device="cpu") -> BDIAOperator:
+def load_bdia_dump(path, device=None) -> BDIAOperator:
     """Read back a ``save_bdia_dump`` pair (either package's) as a
-    complex128 operator on ``device``."""
+    complex128 operator on ``device`` (None: the CUDA card)."""
+    device = default_device(device)
     with open(str(path) + ".json") as f:
         meta = json.load(f)
     if meta.get("format") != "bdia":

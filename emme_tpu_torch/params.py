@@ -144,13 +144,30 @@ _DEFAULTS = {
 }
 
 
-def from_config(cfg: dict, dtype=torch.float64, device="cpu") -> Params:
+def default_device(device=None) -> torch.device:
+    """The device an entry point lands on: the CUDA card when ``device`` is
+    None, else ``device``.  With no CUDA device present None raises; the
+    CPU is taken only when asked for by name."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            'emme_tpu_torch runs on a CUDA device by default and none is '
+            'present; pass device="cpu" to run on the CPU')
+    return torch.device("cuda")
+
+
+def from_config(cfg: dict, dtype=torch.float64, device=None) -> Params:
     """Build ``Params`` from a parsed input dict (reference input.json schema,
     ``Parameters.cpp:36-66``).  ``k_rho`` maps to ``b_theta = k_rho**2``.
     Missing optional keys fall back to reference-compatible defaults; the
     required physical keys raise KeyError just as the reference's
     ``input.at()`` throws (JsonParser.h:63-65).
+
+    ``device=None`` is the CUDA card (``default_device``); every solver
+    takes its device from the ``Params`` it is given.
     """
+    device = default_device(device)
     conf = cfg["conf"]
     if conf not in geometry.GEOMETRIES:
         raise ValueError("Input configuration not supported yet.")

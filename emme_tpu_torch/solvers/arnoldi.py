@@ -16,16 +16,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..params import default_device
+
 
 def arnoldi_factorization(solve_B, n: int, m_krylov: int,
-                          dtype=torch.complex128, device="cpu"):
+                          dtype=torch.complex128, device=None):
     """m-step Arnoldi on the operator x -> B x given as ``solve_B(x)``.
 
     Modified Gram-Schmidt on complex vectors with the conjugated inner
     product <a, b> = conj(a)^T b, from the JAX package's start vector
     1 + 0.3 i k / n.  Returns V (m+1, n) and H (m+1, m), complex ``dtype``
-    tensors on ``device``; nothing is read back to the host."""
+    tensors on ``device`` (None: the CUDA card); nothing is read back to the
+    host."""
     rdtype = torch.float64 if dtype == torch.complex128 else torch.float32
+    device = default_device(device)
     vi = 0.3 * torch.arange(n, dtype=rdtype, device=device) / n
     v = torch.complex(torch.ones_like(vi), vi)
     v = v / torch.linalg.vector_norm(v)

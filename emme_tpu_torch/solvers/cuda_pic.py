@@ -5,15 +5,20 @@ Counterpart of ``emme_tpu/solvers/pallas_pic.py``.  The kernels
 (``csrc/pic.cu``):
 
 * K2, one RK3 stage over all markers (Pallas ``_stage_kernel``): the launch
-  ``pic_stage`` (gather, physics, RK update, per-block deposit histogram)
-  and ``pic_field`` (the block-ordered float64 sum of the histograms times
-  the quasi-neutrality coefficient).  ``stage`` runs both.
+  ``pic_stage`` (gather, physics, RK update, per-block deposit histogram
+  written as one float64 partial a block) and ``pic_field`` (the
+  fixed-order float64 sum of the partials times the quasi-neutrality
+  coefficient).  ``stage`` runs both.
 * K3, the whole run, n_steps x 3 stages, in one persistent cooperative
-  launch (Pallas ``_mega_kernel``).  ``mega`` runs it.
+  launch (Pallas ``_mega_kernel``), J0 and the drift-center phase factor
+  carried from stage to stage.  ``mega`` runs it; ``mega_grid`` reports the
+  launch shape (one block of 1024 threads a SM) and ``LAST_MEGA_GRID`` the
+  one the last launch took.
 * K4, the grid-sync probe (Pallas ``alias_carry_probe``): a cooperative
-  launch at K3's grid in which each round reads what another block wrote in
-  the round before.  ``grid_sync_probe`` runs it; ``grid_sync_selfcheck``
-  runs it once per process, with the co-residency check of K3's grid.
+  launch at K3's grid and co-residency in which each round after the first
+  reads what another block wrote before the grid barrier.
+  ``grid_sync_probe`` runs it; ``grid_sync_selfcheck`` runs it once per
+  process, with the co-residency check of K3's grid.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 ``LAUNCHES``; for CPU tensors it runs the plain version (``stage_ref``,
@@ -44,10 +49,17 @@ LAUNCHES = {"pic_stage": 0, "pic_field": 0, "pic_mega": 0,
             "grid_sync_probe": 0}
 # the path the last ``run`` took: "single" (K3) or "stages" (K2)
 LAST_LAUNCH: str | None = None
+# the launch shape (``mega_grid``) of the last K3 launch
+LAST_MEGA_GRID: dict | None = None
 
 MAX_NF = 12288          # csrc/pic.cu kMaxNf: 4 nf floats of shared memory
-THREADS = 256           # csrc/pic.cu kThreads
-PROBE_ROUNDS = 4
+# csrc/pic.cu kThreads: threads a block.  K3 runs one such block a SM, the
+# fastest of the shapes measured on an H100 (PERF.md section 6): few blocks
+# make the grid barrier and the partials cheap, and 64 registers a thread
+# hold the stage body without spills.
+THREADS = 1024
+TILE = 32               # csrc/pic.cu kTile: columns a block reduces at a time
+PROBE_ROUNDS = 3        # x -> a, barrier, a -> b, barrier, b -> a
 
 # scalar block layout (csrc/pic.cu kP_*)
 (P_L, P_CW, P_VT, P_BT, P_SHAT, P_ODB, P_QR, P_I2CW, P_SUBDT) = range(9)
@@ -211,13 +223,14 @@ def run(p, marker_per_cell: int, n_steps: int, dt, generator=None,
 # the plain versions
 # ---------------------------------------------------------------------------
 
-def stage_ref(stage_idx: int, first: bool, dc: bool, params, fr, fi, qn,
-              arrs, vel_prev=None):
-    """K2's arithmetic in torch, on any device: the Pallas formulas of
-    ``pallas_pic.py:178-292`` with index gathers and ``index_add_``.
-    Returns (vel_re, vel_im, eta, w_re, w_im, field_re, field_im).  The
-    scalars are 0-d tensors on the markers' device, so on the card the
-    divisions are true divisions, as in the kernel."""
+def marker_ref(stage_idx: int, first: bool, dc: bool, params, fr, fi, arrs,
+               vel_prev=None):
+    """One stage's per-marker arithmetic in torch, on any device: the Pallas
+    formulas of ``pallas_pic.py:178-279`` with index gathers.  Returns
+    (vel_re, vel_im, eta, w_re, w_im) and the deposit (den_re, den_im, i2,
+    ir, w2): density, left and right cell, right-cell weight.  The scalars
+    are 0-d tensors on the markers' device, so on the card the divisions
+    are true divisions, as in the kernel."""
     nf = fr.shape[0]
     prm = torch.as_tensor(params, device=fr.device)
     L, cw, vt, bt, shat, odb, qR, i2cw = (prm[k] for k in range(8))
@@ -292,15 +305,31 @@ def stage_ref(stage_idx: int, first: bool, dc: bool, params, fr, fi, qn,
         deni = j0n * (wre_n * dni + wim_n * dnr)
     else:
         denr, deni = j0n * wre_n, j0n * wim_n
-    # the density accumulates in float64, as the kernel's cross-block sum
+    return (velr, veli, eta_n, wre_n, wim_n), (denr, deni, i2, ir, w2)
+
+
+def deposit_ref(denr, deni, i2, ir, w2, qn):
+    """The field planes of a deposit (solver_pic.h:249-354): the CIC
+    histogram of the density, accumulated in float64 as the kernels'
+    cross-block sums are, rounded once, times the quasi-neutrality
+    coefficient."""
     w2l = 1.0 - w2
     planes = []
     for den in (denr, deni):
-        h = torch.zeros(nf, dtype=torch.float64, device=den.device)
+        h = torch.zeros(qn.shape[0], dtype=torch.float64, device=den.device)
         h.index_add_(0, i2, (den * w2l).double())
         h.index_add_(0, ir, (den * w2).double())
         planes.append(h.to(den.dtype) * qn)
-    return velr, veli, eta_n, wre_n, wim_n, planes[0], planes[1]
+    return planes[0], planes[1]
+
+
+def stage_ref(stage_idx: int, first: bool, dc: bool, params, fr, fi, qn,
+              arrs, vel_prev=None):
+    """K2's plain version: ``marker_ref`` and ``deposit_ref``.  Returns
+    (vel_re, vel_im, eta, w_re, w_im, field_re, field_im)."""
+    state, deposit = marker_ref(stage_idx, first, dc, params, fr, fi, arrs,
+                                vel_prev)
+    return (*state, *deposit_ref(*deposit, qn))
 
 
 def mega_ref(dc: bool, params, fr, fi, qn, arrs, n_steps: int):
@@ -322,11 +351,20 @@ def mega_ref(dc: bool, params, fr, fi, qn, arrs, n_steps: int):
             torch.stack(stats))
 
 
+def probe_rotation(s: int, nblocks: int) -> int:
+    """The block rotation of K4's round s >= 2 (csrc/pic.cu
+    probe_rotation): half the grid away at first, then nearer."""
+    return (nblocks // s + s) % nblocks
+
+
 def grid_sync_probe_ref(x, rounds: int = PROBE_ROUNDS):
-    """K4's plain version on (nblocks, slice) x: after round s block b holds
-    2 x (block (b + s) mod nblocks of round s - 1), so the result is
-    x * 2^rounds rotated by rounds (rounds + 1) / 2 blocks."""
-    return torch.roll(x, -(rounds * (rounds + 1) // 2), dims=0) * 2.0 ** rounds
+    """K4's plain version on (nblocks, slice) x.  Round 1: block b holds
+    2 x (its own slice).  Round s >= 2: block b holds 2 x (block
+    (b + probe_rotation(s)) mod nblocks of round s - 1).  So the result is
+    x * 2^rounds, rotated by the rotations' sum."""
+    nblocks = x.shape[0]
+    shift = sum(probe_rotation(s, nblocks) for s in range(2, rounds + 1))
+    return torch.roll(x, -shift, dims=0) * 2.0 ** rounds
 
 
 # ---------------------------------------------------------------------------
@@ -342,19 +380,20 @@ def _library():
             "pic_max_nf": ([], ci),
             "pic_params_len": ([], ci),
             "pic_threads": ([], ci),
+            "pic_tile": ([], ci),
             "pic_stage_grid": ([ci] * 5, ci),
-            "pic_stage_launch": ([ci, ci, ci] + [vp] * 19 + [ci, ci, ci, vp],
+            "pic_stage_launch": ([ci, ci, ci] + [vp] * 19 + [ci] * 3 + [vp],
                                  ci),
             "pic_field_launch": ([vp, ci, vp, vp, vp, ci, vp], ci),
-            "pic_mega_grid": ([ci, ci, pci, pci, pci], ci),
-            "pic_mega_launch": ([ci] + [vp] * 17 + [ci, ci, ci, ci, vp], ci),
-            "grid_sync_probe_launch": ([vp, vp, ci, ci, ci, vp], ci),
+            "pic_mega_grid": ([ci] * 2 + [pci] * 5, ci),
+            "pic_mega_launch": ([ci] + [vp] * 19 + [ci] * 6 + [vp], ci),
+            "grid_sync_probe_launch": ([vp, vp, vp] + [ci] * 4 + [vp], ci),
         }
         for name, (args, res) in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, res
-        if (lib.pic_max_nf(), lib.pic_params_len(), lib.pic_threads()) != \
-                (MAX_NF, N_PARAMS, THREADS):
+        if (lib.pic_max_nf(), lib.pic_params_len(), lib.pic_threads(),
+                lib.pic_tile()) != (MAX_NF, N_PARAMS, THREADS, TILE):
             raise RuntimeError("csrc/pic.cu constants disagree with "
                                "cuda_pic.py")
     return lib
@@ -371,6 +410,10 @@ def _check(name, t, shape, device):
 
 def _check_inputs(fr, fi, qn, arrs, vel_prev=None):
     dev, nf = fr.device, fr.shape[0]
+    if nf < TILE or nf % TILE:
+        raise ValueError(f"PIC kernel: the field reduce takes tiles of "
+                         f"{TILE} columns of one plane, so npoints % {TILE} "
+                         f"== 0; got {nf}")
     m = arrs["eta"].shape[0]
     for name, t in (("field_re", fr), ("field_im", fi), ("qn", qn)):
         _check(name, t, (nf,), dev)
@@ -379,6 +422,13 @@ def _check_inputs(fr, fi, qn, arrs, vel_prev=None):
     for k, t in zip(("vel_re", "vel_im"), vel_prev or ()):
         _check(k, t, (m,), dev)
     return dev, nf, m
+
+
+def _check_partials(partials, device):
+    if partials.device != device or partials.dtype != torch.float64 \
+            or not partials.is_contiguous():
+        raise ValueError("PIC kernel: partials must be a contiguous float64 "
+                         f"tensor on {device}")
 
 
 def _params_host(params) -> np.ndarray:
@@ -399,7 +449,7 @@ def _raise_on(err, what):
 
 def _launch_stage(stage_idx, first, dc, params, fr, fi, arrs, vel_prev):
     """K2's first launch on the card: (vel_re, vel_im, eta, w_re, w_im,
-    partials (n_blocks, 2, nf))."""
+    partials (n_blocks, 2, nf) float64)."""
     dev, nf, m = fr.device, fr.shape[0], arrs["eta"].shape[0]
     lib = _library()
     params = _params_host(params)
@@ -409,7 +459,8 @@ def _launch_stage(stage_idx, first, dc, params, fr, fi, arrs, vel_prev):
             raise RuntimeError(f"pic_stage: no grid for stage {stage_idx}, "
                                f"first={first}, dc={dc}, m={m}, nf={nf}")
         outs = [torch.empty(m, dtype=_F32, device=dev) for _ in range(5)]
-        partials = torch.empty((n_blocks, 2, nf), dtype=_F32, device=dev)
+        partials = torch.empty((n_blocks, 2, nf), dtype=torch.float64,
+                               device=dev)
         vpre, vpim = vel_prev if vel_prev is not None else (None, None)
         err = lib.pic_stage_launch(
             stage_idx, int(first), int(dc), params.ctypes.data,
@@ -425,14 +476,16 @@ def _launch_stage(stage_idx, first, dc, params, fr, fi, arrs, vel_prev):
 
 
 def _launch_field(partials, qn):
-    """K2's second launch: the field planes from the partial histograms."""
+    """K2's second launch: the field planes from the blocks' partial
+    histograms, summed in a fixed order."""
     dev = qn.device
-    n_blocks, _, nf = partials.shape
+    n_part, _, nf = partials.shape
+    _check_partials(partials, dev)
     fro = torch.empty(nf, dtype=_F32, device=dev)
     fio = torch.empty(nf, dtype=_F32, device=dev)
     with torch.cuda.device(dev):
         err = _library().pic_field_launch(
-            partials.data_ptr(), n_blocks, qn.data_ptr(), fro.data_ptr(),
+            partials.data_ptr(), n_part, qn.data_ptr(), fro.data_ptr(),
             fio.data_ptr(), nf, _stream(dev))
     _raise_on(err, "pic_field launch")
     LAUNCHES["pic_field"] += 1
@@ -440,29 +493,38 @@ def _launch_field(partials, qn):
 
 
 def mega_grid(device, nf: int, dc: bool) -> dict:
-    """K3's co-resident grid on ``device``: {"blocks_per_sm", "sms",
-    "grid", "cooperative"}."""
-    lib = _library()
-    bps, sms, coop = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    """K3's launch shape on ``device``: {"sms", "grid" (co-resident blocks,
+    one a SM; 0 where none fits), "threads", "partials" (one a block),
+    "smem" (bytes of dynamic shared memory: a SM's whole share),
+    "registers", "cooperative"}."""
+    out = [ctypes.c_int() for _ in range(5)]
     with torch.cuda.device(device):
-        err = lib.pic_mega_grid(int(dc), nf, ctypes.byref(bps),
-                                ctypes.byref(sms), ctypes.byref(coop))
+        err = _library().pic_mega_grid(int(dc), nf,
+                                       *(ctypes.byref(v) for v in out))
     _raise_on(err, "pic_mega occupancy query")
-    return {"blocks_per_sm": bps.value, "sms": sms.value,
-            "grid": bps.value * sms.value, "cooperative": bool(coop.value)}
+    sms, grid, smem, regs, coop = (v.value for v in out)
+    return {"sms": sms, "grid": grid, "threads": THREADS, "partials": grid,
+            "smem": smem, "registers": regs, "cooperative": bool(coop)}
 
 
-def _launch_mega(dc, params, fr, fi, qn, arrs, n_steps):
+def _launch_mega(dc, params, fr, fi, qn, arrs, n_steps, parts=3):
+    """K3 on the card.  ``parts``: 3 for a run; 1 leaves the field reduce
+    out and 2 the marker pass, to time each by difference."""
+    global LAST_MEGA_GRID
     dev, nf, m = fr.device, fr.shape[0], arrs["eta"].shape[0]
-    grid = mega_grid(dev, nf, dc)["grid"]
-    if grid < 1:
-        raise RuntimeError(f"pic_mega does not fit one block per SM at "
-                           f"nf={nf}")
+    shape = mega_grid(dev, nf, dc)
+    if shape["grid"] < 1:
+        raise RuntimeError(f"pic_mega: no block of {THREADS} threads fits a "
+                           f"SM at nf={nf}")
     params = _params_host(params)
     eta, wre, wim = (arrs[k].clone() for k in ("eta", "w_re", "w_im"))
     vel = torch.zeros((2, m), dtype=_F32, device=dev)
-    partials = torch.empty((grid, 2, nf), dtype=_F32, device=dev)
+    carry = torch.empty((3, m), dtype=_F32, device=dev)
+    partials = torch.empty((shape["partials"], 2, nf), dtype=torch.float64,
+                           device=dev)
     fbuf = torch.empty((2, 2, nf), dtype=_F32, device=dev)
+    tile_stats = torch.empty((2 * nf // TILE, 2), dtype=torch.float64,
+                             device=dev)
     stats = torch.empty((n_steps, 3), dtype=_F32, device=dev)
     with torch.cuda.device(dev):
         err = _library().pic_mega_launch(
@@ -471,25 +533,27 @@ def _launch_mega(dc, params, fr, fi, qn, arrs, n_steps):
             arrs["v_perp"].data_ptr(), wre.data_ptr(), wim.data_ptr(),
             arrs["odv"].data_ptr(), arrs["ost"].data_ptr(),
             arrs["pw"].data_ptr(), vel[0].data_ptr(), vel[1].data_ptr(),
-            partials.data_ptr(), fbuf.data_ptr(), stats.data_ptr(), n_steps,
-            m, nf, grid, _stream(dev))
-    _raise_on(err, "pic_mega cooperative launch")
+            carry.data_ptr(), partials.data_ptr(), fbuf.data_ptr(),
+            tile_stats.data_ptr(), stats.data_ptr(), n_steps, m, nf,
+            shape["grid"], shape["smem"], parts, _stream(dev))
+    _raise_on(err, f"pic_mega cooperative launch ({shape['grid']} blocks)")
     LAUNCHES["pic_mega"] += 1
+    LAST_MEGA_GRID = shape
     out = fbuf[(3 * n_steps) % 2]
     return eta, wre, wim, out[0], out[1], stats
 
 
-def _launch_probe(x, rounds):
+def _launch_probe(x, rounds, copy):
     dev = x.device
     nblocks, slice_ = x.shape
-    buf = torch.stack([x, torch.empty_like(x)])
+    bufs = torch.empty((2, nblocks, slice_), dtype=_F32, device=dev)
     with torch.cuda.device(dev):
         err = _library().grid_sync_probe_launch(
-            buf[0].data_ptr(), buf[1].data_ptr(), nblocks, slice_, rounds,
-            _stream(dev))
-    _raise_on(err, "grid_sync_probe cooperative launch")
+            x.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(), nblocks,
+            slice_, rounds, int(copy), _stream(dev))
+    _raise_on(err, f"grid_sync_probe cooperative launch ({nblocks} blocks)")
     LAUNCHES["grid_sync_probe"] += 1
-    return buf[rounds % 2]
+    return bufs[(rounds + 1) % 2]
 
 
 # ---------------------------------------------------------------------------
@@ -532,15 +596,19 @@ def mega(dc: bool, params, fr, fi, qn, arrs, n_steps: int):
     return _launch_mega(dc, params, fr, fi, qn, arrs, n_steps)
 
 
-def grid_sync_probe(x, rounds: int = PROBE_ROUNDS):
-    """K4 on (nblocks, slice) float32 x, one cooperative block per row."""
+def grid_sync_probe(x, rounds: int = PROBE_ROUNDS, copy: bool = True):
+    """K4 on (nblocks, slice) float32 x, one cooperative block of
+    ``THREADS`` threads per row, one block a SM as K3 runs.  ``copy=False``
+    runs the launch and its barriers without the loads and stores (its
+    result is scratch): the floor of the kernel's time, and at two round
+    counts the cost of a grid barrier."""
     if x.dim() != 2 or rounds < 1:
-        raise ValueError("grid_sync_probe takes (nblocks, slice) and "
-                         "rounds >= 1")
+        raise ValueError("grid_sync_probe takes (nblocks, slice) and rounds "
+                         ">= 1")
     _check("x", x, x.shape, x.device)
     if not _route(x.device):
         return grid_sync_probe_ref(x, rounds)
-    return _launch_probe(x, rounds)
+    return _launch_probe(x, rounds, copy)
 
 
 _SELFCHECK: dict = {}
@@ -555,17 +623,18 @@ def grid_sync_selfcheck(device, nf: int, dc: bool):
     key = (str(device), nf, dc)
     if key not in _SELFCHECK:
         info = {"reason": None}
-        nblocks = 4
+        n_blocks = 4
         if _route(device):
-            info.update(mega_grid(device, nf, dc))
-            nblocks = info["grid"]
-            if not info["cooperative"]:
+            shape = mega_grid(device, nf, dc)
+            info.update(shape)
+            n_blocks = shape["grid"]
+            if not shape["cooperative"]:
                 info["reason"] = "the device has no cooperative launch"
-            elif nblocks < 1:
-                info["reason"] = f"K3 does not fit one block per SM at nf={nf}"
+            elif n_blocks < 1:
+                info["reason"] = f"no block of K3 fits a SM at nf={nf}"
         if info["reason"] is None:
             gen = torch.Generator(device=device).manual_seed(0)
-            x = torch.rand((nblocks, THREADS), generator=gen, dtype=_F32,
+            x = torch.rand((n_blocks, THREADS), generator=gen, dtype=_F32,
                            device=device)
             if not torch.equal(grid_sync_probe(x), grid_sync_probe_ref(x)):
                 info["reason"] = ("the grid-sync probe failed: a block did "

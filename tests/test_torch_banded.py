@@ -42,7 +42,7 @@ def test_solve_matches_jax_and_dense(n, block, h):
     """LU + solve (vector and 3 right-hand sides): within 1e-12 relative of
     emme_tpu's, within 1e-10 of numpy's dense solve."""
     M = _random_banded(n, block, h)
-    op = sparse.bdia_from_dense(M, block=block)
+    op = sparse.bdia_from_dense(M, block=block, device="cpu")
     lu = banded.banded_lu(op)
     assert lu.h == h and lu.W.shape == (n // block + h, 2 * h + 1, block,
                                         block)
@@ -68,7 +68,8 @@ def test_selected_inverse_and_trace(n, block, h):
     numpy's dense inverse and trace."""
     M = _symmetric(_random_banded(n, block, h, seed=2))
     A = _symmetric(_random_banded(n, block, h, seed=3, diag_boost=0.5))
-    op, opA = (sparse.bdia_from_dense(X, block=block) for X in (M, A))
+    op, opA = (sparse.bdia_from_dense(X, block=block, device="cpu")
+               for X in (M, A))
     Zu = banded.banded_selected_inverse(banded.banded_lu(op))
     tr = complex(banded.banded_trace_product(Zu, opA))
     jop, jopA = (jsparse.bdia_from_dense(X, block=block) for X in (M, A))
@@ -105,7 +106,8 @@ def test_near_singular_shift():
     Ms = M - (evals[k] + 1e-4) * np.eye(64)
     x = np.ones(64) + 0.1j
     z = banded.banded_solve(banded.banded_lu(
-        sparse.bdia_from_dense(Ms, block=16)), torch.as_tensor(x)).numpy()
+        sparse.bdia_from_dense(Ms, block=16, device="cpu")),
+        torch.as_tensor(x)).numpy()
     zr, zi = jbanded.banded_solve(
         jbanded.banded_lu(jsparse.bdia_from_dense(Ms, block=16)),
         jnp.asarray(x.real), jnp.asarray(x.imag))
@@ -120,7 +122,7 @@ def test_rowmajor_from_bdia():
     """Band storage: W[i, h + d] is block (i, i + d); h zero rows pad the
     end."""
     M = _random_banded(64, 16, 2, seed=7)
-    op = sparse.bdia_from_dense(M, block=16)
+    op = sparse.bdia_from_dense(M, block=16, device="cpu")
     W, h = banded.rowmajor_from_bdia(op)
     assert h == 2 and W.shape == (6, 5, 16, 16)
     for i in range(4):

@@ -16,9 +16,12 @@ import pytest
 import torch
 
 import emme_tpu_torch as et
+from emme_tpu_torch import convert
 from emme_tpu_torch.grid import Grid
-from emme_tpu_torch.ops import cuda_kappa, cuda_spmv, kernels, sparse
-from emme_tpu_torch.solvers import cuda_pic, eigen, pic, sparse_eigen
+from emme_tpu_torch.ops import (cuda_kappa, cuda_spmv, kernels, singularity,
+                                sparse)
+from emme_tpu_torch.solvers import (arnoldi, cuda_pic, eigen, pic,
+                                    sparse_eigen)
 
 torch.set_num_threads(2)
 
@@ -159,15 +162,117 @@ def test_pic_mega_matches_stages(card):
 
 @pytest.mark.cuda
 def test_grid_sync_probe(card):
-    """K4 at K3's co-resident grid: every block sees every other block's
-    writes after grid.sync(), and the self-check passes."""
+    """K4 at K3's co-resident grid (one block of 1024 threads a SM): after
+    grid.sync() every block sees every other block's writes; the self-check
+    passes."""
     grid = cuda_pic.mega_grid(card, 1024, True)
-    assert grid["cooperative"] and grid["grid"] >= grid["sms"]
+    assert grid["cooperative"] and grid["grid"] == grid["sms"]
+    assert grid["threads"] == cuda_pic.THREADS
     x = torch.rand((grid["grid"], cuda_pic.THREADS), device=card)
-    assert torch.equal(cuda_pic.grid_sync_probe(x),
-                       cuda_pic.grid_sync_probe_ref(x))
+    before = cuda_pic.LAUNCHES["grid_sync_probe"]
+    got = cuda_pic.grid_sync_probe(x)
+    assert cuda_pic.LAUNCHES["grid_sync_probe"] == before + 1
+    assert torch.equal(got, cuda_pic.grid_sync_probe_ref(x))
     ok, info = cuda_pic.grid_sync_selfcheck(card, 1024, True)
     assert ok, info
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds,slice_", [(1, 300), (2, 1024), (3, 7),
+                                           (5, 300)])
+def test_grid_sync_probe_rounds(card, rounds, slice_):
+    """K4 against its plain version over round counts and slice lengths,
+    one block a SM."""
+    sms = cuda_pic.mega_grid(card, 1024, True)["sms"]
+    x = torch.rand((sms, slice_), device=card)
+    got = cuda_pic.grid_sync_probe(x, rounds)
+    assert torch.equal(got, cuda_pic.grid_sync_probe_ref(x, rounds))
+
+
+@pytest.mark.cuda
+def test_default_device_is_the_card(card):
+    """from_config, convert and the constructors that take a device land
+    on the CUDA card when given none, and the solve from there runs on
+    it."""
+    p = et.from_config(_cfg("tokamak", 32), dtype=torch.float32)
+    assert p.device.type == "cuda" and p.length.is_cuda
+    st = convert.state_from_arrays(0j, 0j, np.eye(2), np.eye(2))
+    assert st.M.is_cuda
+    assert Grid.create(20.0, 33).eta.is_cuda
+    assert singularity.singularity_coeff_matrix(8).is_cuda
+    assert singularity.singularity_coeff_band(8, 2).is_cuda
+    assert sparse.bsr_from_dense(np.eye(4), block=2).data.is_cuda
+    assert sparse.bdia_from_dense(np.eye(4), block=2).data.is_cuda
+    V, H = arnoldi.arnoldi_factorization(lambda x: x, 4, 2)
+    assert V.is_cuda and H.is_cuda
+    om, vec, _, state = eigen.solve(p, -0.8 + 0.25j, tol=1e-5)
+    assert state.M.is_cuda and vec.is_cuda
+
+
+@pytest.mark.cuda
+def test_pic_mega_repeats(card):
+    """K3 twice from one state: eta bit-equal (it never sees the field);
+    weights, field and stats within the stage bars (the order of the
+    shared-memory atomics inside a block is free).  K2's field reduce on
+    the same partials repeats bit for bit: the cross-block order is
+    fixed."""
+    p, s0 = _pic_case(card, 1024, 64)
+    st_a, s_a, _ = cuda_pic.run(p, 64, 8, 0.25, state=s0, launch="single")
+    st_b, s_b, _ = cuda_pic.run(p, 64, 8, 0.25, state=s0, launch="single")
+    assert torch.equal(s_a.eta, s_b.eta)
+    assert _rel(st_a, st_b) < 1e-5
+    for name in ("weight", "field"):
+        assert _rel(getattr(s_a, name), getattr(s_b, name)) < 2e-5, name
+    shape = cuda_pic.LAST_MEGA_GRID
+    assert shape == cuda_pic.mega_grid(card, 1024, True)
+    assert shape["partials"] == shape["grid"] == shape["sms"]
+    fs = cuda_pic.FusedStep(p, 1024 * 64, 0.25)
+    qn = pic.quasi_neutrality_coef(p, dtype=torch.float32)
+    *_, partials = cuda_pic._launch_stage(
+        0, False, True, fs.params, s_a.field.real.contiguous(),
+        s_a.field.imag.contiguous(), cuda_pic.state_to_arrs(s_a), None)
+    assert partials.dtype == torch.float64
+    a, b = (cuda_pic._launch_field(partials, qn) for _ in range(2))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dc", [(96, True), (96, False), (32, True),
+                                  (2048, True)])
+def test_pic_mega_matches_plain_at_other_sizes(card, n, dc):
+    """K3 against mega_ref at grids other than 1024 and 128, among them
+    npoints = 96 (an odd number of 32-column tiles a plane): per-step
+    stats within 1e-5, weights and field within 2e-5 of scale, eta within
+    1 ulp."""
+    p, s0 = _pic_case(card, n, 64, dc)
+    params = cuda_pic.FusedStep.params_vec(p, 0.25)
+    qn = pic.quasi_neutrality_coef(p, dtype=torch.float32)
+    arrs = cuda_pic.state_to_arrs(s0)
+    field = (s0.field.real.contiguous(), s0.field.imag.contiguous())
+    got = cuda_pic.mega(dc, params, *field, qn, arrs, 4)
+    ref = cuda_pic.mega_ref(dc, params, *field, qn, arrs, 4)
+    assert got[5].shape == (4, 3) and bool(torch.isfinite(got[5]).all())
+    assert _rel(got[5], ref[5]) < 1e-5
+    for a, b in zip(got[1:5], ref[1:5]):
+        assert _rel(a, b) < 2e-5
+    assert _within_ulp(got[0], ref[0])
+    k2 = cuda_pic.stage(0, True, dc, params, *field, qn, arrs)
+    k2_ref = cuda_pic.stage_ref(0, True, dc, params, *field, qn, arrs)
+    for a, b in zip(k2[5:], k2_ref[5:]):
+        assert _rel(a, b) < 2e-5
+
+
+@pytest.mark.cuda
+def test_pic_kernels_refuse_a_tile_across_planes(card):
+    """npoints = 48 (a reduce tile would span both planes) is refused by
+    the wrappers on the card too, before any launch."""
+    before = dict(cuda_pic.LAUNCHES)
+    arrs = {k: torch.zeros(48 * 8, device=card) for k in cuda_pic.MARKERS}
+    fr = torch.zeros(48, device=card)
+    with pytest.raises(ValueError, match="npoints % 32"):
+        cuda_pic.mega(True, np.zeros(cuda_pic.N_PARAMS, np.float32), fr, fr,
+                      fr, arrs, 1)
+    assert cuda_pic.LAUNCHES == before
 
 
 @pytest.mark.cuda

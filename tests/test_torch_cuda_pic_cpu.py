@@ -5,6 +5,7 @@ the bars of tests/test_pallas_pic.py.  The CUDA kernels themselves are held
 to these plain versions in test_torch_cuda.py."""
 import pathlib
 import re
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -29,14 +30,14 @@ BARS = {"eta": 2e-5, "weight": 2e-5, "field": 2e-5, "j0": 2e-5,
 def _params(cfg, dc=True, n=128):
     cfg = dict(cfg, npoints=n, drift_center_transformation_switch=dc)
     return (emme_tpu.from_config(cfg, dtype=jnp.float32),
-            et.from_config(cfg, dtype=torch.float32))
+            et.from_config(cfg, dtype=torch.float32, device="cpu"))
 
 
 def _start(pj, mpc, key):
     s = jpic.init_state(pj, mpc, key, dtype=jnp.float32)
     return convert.pic_state_from_arrays(
         {k: np.asarray(getattr(s, k)) for k in s.__dataclass_fields__},
-        dtype=torch.float32)
+        device="cpu", dtype=torch.float32)
 
 
 def _assert_close(stats, state, stats_ref, state_ref):
@@ -126,7 +127,7 @@ def test_guards(tokamak_cfg):
     _, pt = _params(tokamak_cfg)
     with pytest.raises(ValueError, match="markers"):
         cuda_pic.run(pt, 4, 2, 0.25)
-    p64 = et.from_config(dict(tokamak_cfg, npoints=128))
+    p64 = et.from_config(dict(tokamak_cfg, npoints=128), device="cpu")
     with pytest.raises(ValueError, match="f32"):
         cuda_pic.run(p64, 16, 2, 0.25)
     with pytest.raises(ValueError, match="launch"):
@@ -182,21 +183,207 @@ def test_stage_wrapper_validates(tokamak_cfg):
                       dict(arrs, eta=arrs["eta"][::2]), 1)
 
 
+@pytest.mark.parametrize("nf", [96, 128, 1024])
+def test_tile_stats_are_the_plane_stats(nf):
+    """K3's per-step statistics in numpy, in the kernel's order (csrc/pic.cu
+    reduce_field, step_stats): each tile of 32 columns of the (2 nf,) field
+    gives its sum and its sum of squares, the first half of the tiles is
+    the real plane, lanes take tiles at a stride of 32 and a shuffle tree
+    adds them.  With nf a multiple of the tile that is plane_stats."""
+    rng = np.random.default_rng(nf)
+    field = rng.normal(size=(2, nf)).astype(np.float32)
+    tiles = field.reshape(-1, cuda_pic.TILE).astype(np.float64)
+    n_tiles = tiles.shape[0]
+    assert n_tiles == 2 * nf // cuda_pic.TILE and n_tiles % 2 == 0
+    sums, squares = tiles.sum(axis=1), (tiles * tiles).sum(axis=1)
+    lanes = np.zeros((32, 3))
+    for t in range(n_tiles):
+        lanes[t % 32, 0 if t < n_tiles // 2 else 1] += sums[t]
+        lanes[t % 32, 2] += squares[t]
+    a, b, c = lanes.sum(axis=0)
+    got = np.array([a / nf, b / nf, np.sqrt(c / nf)], np.float32)
+    want = cuda_pic.plane_stats(torch.as_tensor(field[0]),
+                                torch.as_tensor(field[1])).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("nf", [16, 48, 80])
+def test_wrappers_refuse_a_tile_across_planes(tokamak_cfg, nf):
+    """npoints must be a multiple of the reduce's tile of 32 columns: at
+    npoints = 48 a tile would span the end of the real plane and the start
+    of the imaginary one, and the per-step statistics take whole tiles as
+    one or the other.  K2's and K3's wrappers refuse such a field."""
+    _, pt = _params(tokamak_cfg, n=nf)
+    params = cuda_pic.FusedStep.params_vec(pt, 0.25)
+    arrs = {k: torch.zeros(8 * nf) for k in cuda_pic.MARKERS}
+    fr, fi, qn = torch.zeros(nf), torch.zeros(nf), torch.ones(nf)
+    with pytest.raises(ValueError, match="npoints % 32"):
+        cuda_pic.mega(True, params, fr, fi, qn, arrs, 1)
+    with pytest.raises(ValueError, match="npoints % 32"):
+        cuda_pic.stage(0, True, True, params, fr, fi, qn, arrs)
+
+
+def _probe_model(x, rounds):
+    """K4's rounds written out in numpy (csrc/pic.cu
+    grid_sync_probe_kernel): x is read in place, the rounds alternate two
+    scratch buffers."""
+    nb = x.shape[0]
+    bufs = [np.empty_like(x), np.empty_like(x)]
+    for b in range(nb):       # round 1: the block's own slice
+        bufs[0][b] = 2.0 * x[b]
+    for s in range(2, rounds + 1):
+        src, dst = bufs[s % 2], bufs[(s + 1) % 2]
+        for b in range(nb):
+            dst[b] = 2.0 * src[(b + cuda_pic.probe_rotation(s, nb)) % nb]
+    return bufs[(rounds + 1) % 2]
+
+
 def test_grid_sync_probe_plain():
-    """The plain probe is the rounds written out: block b reads block
-    (b + s) mod n, doubles; on a CPU tensor the wrapper runs it and the
-    self-check passes without a launch."""
+    """The plain probe is the rounds written out: round 1 reads x, round
+    s >= 2 reads block (b + rotation(s)) mod n of the round before, each
+    doubles; on a CPU tensor the wrapper runs it and the self-check passes
+    without a launch."""
     x = torch.rand((7, 32), generator=torch.Generator().manual_seed(0))
-    bufs = [x.clone(), torch.empty_like(x)]
-    for s in range(1, cuda_pic.PROBE_ROUNDS + 1):
-        src, dst = bufs[(s - 1) % 2], bufs[s % 2]
-        for b in range(7):
-            dst[b] = 2.0 * src[(b + s) % 7]
     before = dict(cuda_pic.LAUNCHES)
-    assert torch.equal(cuda_pic.grid_sync_probe(x),
-                       bufs[cuda_pic.PROBE_ROUNDS % 2])
+    np.testing.assert_array_equal(
+        cuda_pic.grid_sync_probe(x).numpy(),
+        _probe_model(x.numpy(), cuda_pic.PROBE_ROUNDS))
     assert cuda_pic.grid_sync_selfcheck("cpu", 1024, True)[0]
     assert cuda_pic.LAUNCHES == before
+
+
+@pytest.mark.parametrize("nblocks,rounds", [
+    (16, cuda_pic.PROBE_ROUNDS), (24, 2), (12, 5), (9, 1),
+    (132, cuda_pic.PROBE_ROUNDS)])
+def test_grid_sync_probe_ref_is_the_rounds(nblocks, rounds):
+    """grid_sync_probe_ref against the numpy model of K4's rounds: round 1
+    doubles the block's own slice, each later round reads a block across
+    the grid; the default rounds read both scratch buffers after a barrier,
+    the first of them from half the grid away."""
+    x = torch.rand((nblocks, 4), generator=torch.Generator().manual_seed(1))
+    got = cuda_pic.grid_sync_probe_ref(x, rounds)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _probe_model(x.numpy(), rounds))
+    assert cuda_pic.PROBE_ROUNDS >= 3    # a + b written, then each read
+    assert cuda_pic.probe_rotation(2, nblocks) == (nblocks // 2 + 2) % nblocks
+    with pytest.raises(ValueError, match="rounds"):
+        cuda_pic.grid_sync_probe(x, rounds=0)
+
+
+def _rn32(v: Fraction) -> Fraction:
+    """v rounded to the nearest float32 (ties to even), exactly; normal
+    range."""
+    if v == 0:
+        return v
+    a = abs(v)
+    e = a.numerator.bit_length() - a.denominator.bit_length()
+    if Fraction(2) ** e > a:
+        e -= 1
+    assert -126 <= e <= 127
+    ulp = Fraction(2) ** (e - 23)
+    n, rem = divmod(a, ulp)
+    if rem * 2 > ulp or (rem * 2 == ulp and n % 2):
+        n += 1
+    return (n * ulp) * (1 if v > 0 else -1)
+
+
+def _div_const(a: Fraction, c: int) -> Fraction:
+    """csrc/pic.cu div_const in exact arithmetic: r = RN(1/c), q = RN(a r),
+    e = RN(a - c q) (one FMA), RN(q + e r) (one FMA)."""
+    r = _rn32(Fraction(1, c))
+    q = _rn32(a * r)
+    e = _rn32(a - c * q)
+    assert e == a - c * q          # the remainder is exact
+    return _rn32(q + e * r)
+
+
+@pytest.mark.parametrize("family", ["j0", "j1"])
+def test_const_division_is_ieee(family):
+    """The three-operation division by a compile-time constant equals the
+    float32 IEEE quotient for each Taylor divisor (k^2 for J0, k (k + 1)
+    for J1, k = 1..30), emulated in rational arithmetic, over numerators
+    t q of |x| <= 8: random mantissas and the edges of the mantissa range
+    at exponents from 2^-93 (far below the smallest q = -x^2 / 4 a marker
+    produces, x ~ 2^-24 giving q ~ 2^-50) up to 2^12."""
+    rng = np.random.default_rng(0 if family == "j0" else 1)
+    edges = np.array([0, 1, 2, 3, 0x400000, 0x555555, 0x2AAAAA, 0x7FFFFD,
+                      0x7FFFFE, 0x7FFFFF], dtype=np.int64)
+    for k in range(1, 31):
+        c = k * k if family == "j0" else k * (k + 1)
+        mant = np.concatenate([edges, rng.integers(0, 1 << 23, 40)])
+        for exp in (-93, -50, -20, -3, 0, 4, 12):
+            for m in mant:
+                a = Fraction(int((1 << 23) + m)) * Fraction(2) ** (exp - 23)
+                if rng.integers(2):
+                    a = -a
+                want = _rn32(a / c)
+                assert _div_const(a, c) == want, (c, float(a))
+                # numpy's float32 division is the same IEEE quotient
+                assert Fraction(float(np.float32(float(a))
+                                      / np.float32(c))) == want
+
+
+def test_const_division_tiny_numerators_round_away():
+    """Below 2^-93 the remainder may be subnormal and the sequence is not
+    held to the quotient; there both it and a true division stay under
+    2^-25, so the Taylor step 1 + quotient gives 1 either way."""
+    for c in (3 * 3, 30 * 31):
+        for exp in (-94, -110, -126):
+            a = Fraction(2) ** exp * Fraction(3, 2)
+            for d in (a / c, a * _rn32(Fraction(1, c))):
+                assert abs(d) < Fraction(1, 1 << 25)
+                assert _rn32(1 + d) == 1
+
+
+@pytest.mark.parametrize("dc", [True, False])
+def test_hierarchical_reduce_matches_plain_deposit(tokamak_cfg, dc):
+    """A numpy model of the kernels' two-level deposit sum, in their order
+    (csrc/pic.cu deposit, write_partials, reduce_field): float32 histograms
+    per block (markers to blocks by the grid stride), each written as one
+    float64 partial; then per tile of 32 columns, warp w sums partials w,
+    w + n_warps, ... and the warps' sums are added in warp order, rounded
+    to float32, times qn.  It
+    gives the plain deposit's field (stage_ref) to the stage bars: 1e-5 of
+    scale (2e-5 is the kernels' bar)."""
+    _, pt = _params(tokamak_cfg, dc)
+    nf, mpc = 128, 32
+    s0 = pic.init_state(pt, mpc, torch.Generator().manual_seed(7),
+                        dtype=torch.float32)
+    fs = cuda_pic.FusedStep(pt, nf * mpc, 0.25)
+    qn = pic.quasi_neutrality_coef(pt, dtype=torch.float32)
+    arrs = cuda_pic.state_to_arrs(s0)
+    # one plain step first, so that weights and field are not trivial
+    eta, wre, wim, fr, fi, _ = cuda_pic.mega_ref(
+        dc, fs.params, s0.field.real.contiguous(),
+        s0.field.imag.contiguous(), qn, arrs, 1)
+    arrs = dict(arrs, eta=eta, w_re=wre, w_im=wim)
+    _, dep = cuda_pic.marker_ref(0, False, dc, fs.params, fr, fi, arrs)
+    want = cuda_pic.deposit_ref(*dep, qn)
+    ref = cuda_pic.stage_ref(0, False, dc, fs.params, fr, fi, qn, arrs)
+    assert torch.equal(want[0], ref[5]) and torch.equal(want[1], ref[6])
+
+    denr, deni, i2, ir, w2 = (t.numpy() for t in dep)
+    threads, n_blocks, n_warps = 64, 8, 3
+    m = denr.shape[0]
+    block_of = (np.arange(m) // threads) % n_blocks
+    hist = np.zeros((n_blocks, 2, nf), np.float32)
+    wl = np.float32(1.0) - w2
+    for plane, den in enumerate((denr, deni)):
+        for i in range(m):      # the order inside a block is free
+            hist[block_of[i], plane, i2[i]] += den[i] * wl[i]
+            hist[block_of[i], plane, ir[i]] += den[i] * w2[i]
+    partials = hist.reshape(n_blocks, 2 * nf).astype(np.float64)
+    warp_sums = np.zeros((n_warps, 2 * nf), np.float64)
+    for w in range(n_warps):
+        for q in range(w, partials.shape[0], n_warps):
+            warp_sums[w] += partials[q]
+    total = np.zeros(2 * nf, np.float64)
+    for w in range(n_warps):
+        total += warp_sums[w]
+    field = total.astype(np.float32).reshape(2, nf) * qn.numpy()
+    for got, ref_plane in zip(field, want):
+        ref_plane = ref_plane.numpy()
+        assert np.abs(got - ref_plane).max() / np.abs(ref_plane).max() < 1e-5
 
 
 def test_kernel_source_matches_wrapper():
@@ -214,6 +401,14 @@ def test_kernel_source_matches_wrapper():
     for name in ("L", "CW", "VT", "BT", "SHAT", "ODB", "QR", "I2CW", "SUBDT",
                  "CPREV", "CCUR"):
         assert const(f"kP_{name}") == getattr(cuda_pic, f"P_{name}"), name
-    assert "grid.sync()" in src and "cudaLaunchCooperativeKernel" in src
+    assert const("kTile") == cuda_pic.TILE
+    assert "grid.sync()" in src and "cudaLaunchAttributeCooperative" in src
+    assert "atomicAdd(part" not in src
+    # a tile of the field reduce lies in one plane (the per-step statistics
+    # take whole tiles as real or imaginary): nf is a multiple of the tile
+    assert "nf < kTile || nf % kTile" in src
+    # only builds made to count instructions take one Bessel branch
+    assert "#define EMME_BESSEL_BRANCH 0" in src
+    assert not any("EMME_BESSEL_BRANCH" in f for f in _build.NVCC_FLAGS)
     assert "__fdiv_rn(m, two_l)" in src
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)

@@ -35,10 +35,10 @@ def _setup(cfg, n, dtype):
     cfg = dict(cfg, npoints=n)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     pj = emme_tpu.from_config(cfg, dtype=jdt)
-    pt = et.from_config(cfg, dtype=tdt)
+    pt = et.from_config(cfg, dtype=tdt, device="cpu")
     jax_side = (pj, JGrid.create(pj.length, n, dtype=jdt), jcoeff(n, dtype=jdt))
-    port = (pt, Grid.create(pt.length, n, dtype=tdt),
-            singularity_coeff_matrix(n, dtype=tdt))
+    port = (pt, Grid.create(pt.length, n, dtype=tdt, device="cpu"),
+            singularity_coeff_matrix(n, dtype=tdt, device="cpu"))
     return jax_side, port
 
 
@@ -104,7 +104,8 @@ def test_newton_trace_step_from_jax_state(tok32):
     sj = jeigen.init_state(pj, gj, cj, jnp.complex128(GUESS))
     nj = jeigen.newton_trace_step(pj, gj, cj, sj)
     st = convert.state_from_arrays(*(np.asarray(getattr(sj, f))
-                                     for f in ("omega", "d_omega", "M", "dM")))
+                                     for f in ("omega", "d_omega", "M", "dM")),
+                                   device="cpu")
     assert st.M.dtype == torch.complex128
     nt = eigen.newton_trace_step(pt, gt, ct, st, chunk=CHUNK)
     om_j = complex(np.asarray(nj.omega))
@@ -141,7 +142,8 @@ def test_solve_f32_tiered_fused_tok32(tokamak_cfg, golden_eigenvalues):
     """float32 solve on the main path's settings (tiered meshes, K1 -- its
     plain version on the CPU): within 5e-4 of golden tok32 at tol=2e-4
     (tests/test_pallas_kappa.py:72-78)."""
-    p = et.from_config(dict(tokamak_cfg, npoints=32), dtype=torch.float32)
+    p = et.from_config(dict(tokamak_cfg, npoints=32), dtype=torch.float32,
+                       device="cpu")
     before = cuda_kappa.LAUNCHES
     om, vec, nsteps, state = eigen.solve(p, GUESS, tol=2e-4)
     assert cuda_kappa.LAUNCHES == before
@@ -149,7 +151,8 @@ def test_solve_f32_tiered_fused_tok32(tokamak_cfg, golden_eigenvalues):
     ref = complex(*golden_eigenvalues["tok32"]["omega"])
     assert abs(om - ref) / abs(ref) < 5e-4
     with pytest.raises(ValueError):
-        eigen.solve(et.from_config(dict(tokamak_cfg, npoints=32)), GUESS,
+        eigen.solve(et.from_config(dict(tokamak_cfg, npoints=32),
+                                   device="cpu"), GUESS,
                     fused=True)
 
 
@@ -158,7 +161,7 @@ def test_f32_floor_detection_terminates(tokamak_cfg):
     its run-time detected floor, not the step limit
     (tests/test_eigen.py:275-292)."""
     cfg = dict(tokamak_cfg, npoints=32, iteration_step_limit=12)
-    p = et.from_config(cfg, dtype=torch.float32)
+    p = et.from_config(cfg, dtype=torch.float32, device="cpu")
     om, vec, nsteps, _ = eigen.solve(
         p, GUESS, tol=1e-9, quad={"n_shoulder": 8, "n_osc": 16, "n_tail": 4})
     assert nsteps <= p.iteration_step_limit

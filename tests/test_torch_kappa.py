@@ -26,7 +26,7 @@ CSRC = pathlib.Path(cuda_kappa.__file__).resolve().parent.parent / "csrc"
 def _pairs(cfg, n, dtype=jnp.float32):
     cfg = dict(cfg, npoints=n)
     pj = emme_tpu.from_config(cfg, dtype=dtype)
-    pt = et.from_config(cfg, dtype=torch.float32)
+    pt = et.from_config(cfg, dtype=torch.float32, device="cpu")
     iu, ju = np.triu_indices(n, k=1)
     eta = np.asarray(emme_tpu.grid.Grid.create(pj.length, n, dtype=dtype).eta)
     return pj, pt, eta[iu], eta[ju]

@@ -29,7 +29,8 @@ def test_gk_rule_equals_emme_tpu(order):
 @pytest.mark.parametrize("n,dtype", [(8, "float64"), (33, "float64"),
                                      (33, "float32")])
 def test_singularity_coeff_matrix_equals_emme_tpu(n, dtype):
-    mine = singularity.singularity_coeff_matrix(n, dtype=getattr(torch, dtype))
+    mine = singularity.singularity_coeff_matrix(
+        n, dtype=getattr(torch, dtype), device="cpu")
     ref = np.asarray(jsingularity.singularity_coeff_matrix(
         n, dtype=getattr(jnp, dtype)))
     assert mine.dtype == getattr(torch, dtype)
@@ -74,7 +75,7 @@ def test_bessel_i01_scaled_matches_emme_tpu():
 def tok32(tokamak_cfg):
     cfg = dict(tokamak_cfg, npoints=32)
     pj = emme_tpu.from_config(cfg)
-    pt = et.from_config(cfg)
+    pt = et.from_config(cfg, device="cpu")
     iu, ju = np.triu_indices(32, k=1)
     eta = np.asarray(emme_tpu.grid.Grid.create(pj.length, 32).eta)
     return pj, pt, eta[iu], eta[ju]
@@ -117,7 +118,7 @@ def test_kappa_vs_tokamak_micro_goldens(goldens_dir, tokamak_cfg):
     1e-7, abs floor 1e-9 of the per-omega scale; electron 1e-10)."""
     with open(goldens_dir / "micro_tokamak.json") as f:
         gold = json.load(f)
-    p = et.from_config(tokamak_cfg)
+    p = et.from_config(tokamak_cfg, device="cpu")
     by_m = {}
     for c in gold["kappa_cases"]:
         by_m.setdefault(c["m"], []).append(c)
@@ -150,7 +151,7 @@ def test_kappa_vs_tokamak_micro_goldens(goldens_dir, tokamak_cfg):
 @pytest.mark.parametrize("m", [0, 1, 2])
 def test_kappa_f_tau_e_matches_emme_tpu(stellarator_cfg, m):
     pj = emme_tpu.from_config(stellarator_cfg)
-    pt = et.from_config(stellarator_cfg)
+    pt = et.from_config(stellarator_cfg, device="cpu")
     rng = np.random.default_rng(3)
     ea, eb = rng.uniform(-10, 10, 50), rng.uniform(-10, 10, 50)
     om = -1.656 + 2.49j

@@ -12,7 +12,8 @@ import emme_tpu.grid
 import emme_tpu_torch as et
 from emme_tpu_torch import convert
 from emme_tpu_torch.grid import Grid
-from emme_tpu_torch.params import DYNAMIC_FIELDS, STATIC_FIELDS
+from emme_tpu_torch.params import (DYNAMIC_FIELDS, STATIC_FIELDS,
+                                   default_device)
 
 torch.set_num_threads(2)
 
@@ -34,7 +35,8 @@ def _derived(p):
 def test_geometry_vs_micro_goldens(goldens_dir, name):
     """Bars of tests/test_kernels.py:28-45: derived scalars 1e-13, g
     1e-8 (1 + max), bi 1e-12 (1 + max)."""
-    p = et.from_config(_load(goldens_dir, f"inputs/{name}.json"))
+    p = et.from_config(_load(goldens_dir, f"inputs/{name}.json"),
+                       device="cpu")
     gold = _load(goldens_dir, f"micro_{name}.json")
     d = gold["derived"]
     mine = _derived(p)
@@ -56,7 +58,7 @@ def test_geometry_matches_emme_tpu(goldens_dir, name):
     to emme_tpu's within 1e-14 relative to their scale."""
     cfg = _load(goldens_dir, f"inputs/{name}.json")
     pj = emme_tpu.from_config(cfg)
-    pt = et.from_config(cfg)
+    pt = et.from_config(cfg, device="cpu")
     for f in DYNAMIC_FIELDS:   # cyl_shat_coeff: a bisection, then sin/cos
         ref = float(np.asarray(getattr(pj, f)))
         assert abs(float(getattr(pt, f)) - ref) <= 1e-14 * abs(ref), f
@@ -86,8 +88,9 @@ def test_params_from_arrays_round_trip(tokamak_cfg, stellarator_cfg, dtype):
         pj = emme_tpu.from_config(cfg, dtype=jdt)
         fields = {f: np.asarray(getattr(pj, f)) for f in DYNAMIC_FIELDS}
         static = {f: getattr(pj, f) for f in STATIC_FIELDS}
-        pc = convert.params_from_arrays(fields, static, dtype=tdt)
-        pt = et.from_config(cfg, dtype=tdt)
+        pc = convert.params_from_arrays(fields, static, dtype=tdt,
+                                        device="cpu")
+        pt = et.from_config(cfg, dtype=tdt, device="cpu")
         for f in DYNAMIC_FIELDS:
             assert getattr(pc, f).dtype == tdt
             assert torch.equal(getattr(pc, f), getattr(pt, f)), f
@@ -95,14 +98,43 @@ def test_params_from_arrays_round_trip(tokamak_cfg, stellarator_cfg, dtype):
             assert getattr(pc, f) == getattr(pt, f), f
         assert _derived(pc) == _derived(pt)
     with pytest.raises(KeyError):
-        convert.params_from_arrays({}, static)
+        convert.params_from_arrays({}, static, device="cpu")
 
 
 @pytest.mark.parametrize("dtype,rtol", [("float64", 1e-15), ("float32", 1e-7)])
 def test_grid_matches_emme_tpu(dtype, rtol):
     gj = emme_tpu.grid.Grid.create(20.0, 33, dtype=getattr(jnp, dtype))
-    gt = Grid.create(20.0, 33, dtype=getattr(torch, dtype))
+    gt = Grid.create(20.0, 33, dtype=getattr(torch, dtype), device="cpu")
     assert gt.eta.dtype == getattr(torch, dtype)
     np.testing.assert_allclose(gt.eta.numpy(), np.asarray(gj.eta),
                                rtol=0, atol=rtol * 20.0)
     assert float(gt.dx) == float(gj.dx)
+
+
+def test_default_device_is_the_card_and_never_the_cpu_quietly(tokamak_cfg,
+                                                              monkeypatch):
+    """from_config, the convert functions and every constructor that takes
+    a device land on the CUDA card when given none; with no CUDA device
+    they raise and name device="cpu" instead of falling to the CPU."""
+    from emme_tpu_torch.ops import singularity, sparse
+    from emme_tpu_torch.solvers import arnoldi
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        et.from_config(tokamak_cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        convert.state_from_arrays(0j, 0j, np.eye(2), np.eye(2))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        convert.bdia_from_arrays(np.zeros((1, 1, 2, 2, 2)), (0,), 2, 2)
+    for bare in (lambda: Grid.create(20.0, 33),
+                 lambda: singularity.singularity_coeff_matrix(8),
+                 lambda: singularity.singularity_coeff_band(8, 2),
+                 lambda: sparse.bsr_from_dense(np.eye(4), block=2),
+                 lambda: sparse.bdia_from_dense(np.eye(4), block=2),
+                 lambda: sparse.load_bdia_dump("nowhere"),
+                 lambda: arnoldi.arnoldi_factorization(lambda x: x, 4, 2)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            bare()
+    assert et.from_config(tokamak_cfg, device="cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert default_device() == torch.device("cuda")
+    assert default_device("cpu") == torch.device("cpu")

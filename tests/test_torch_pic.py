@@ -25,7 +25,7 @@ torch.set_num_threads(2)
 def _to_port(s, dtype=torch.float64):
     return convert.pic_state_from_arrays(
         {k: np.asarray(getattr(s, k)) for k in s.__dataclass_fields__},
-        dtype=dtype)
+        device="cpu", dtype=dtype)
 
 
 def _rel(a, b):
@@ -36,7 +36,7 @@ def _rel(a, b):
 @pytest.fixture(scope="module")
 def tok64(tokamak_cfg):
     cfg = dict(tokamak_cfg, npoints=64)
-    return emme_tpu.from_config(cfg), et.from_config(cfg)
+    return emme_tpu.from_config(cfg), et.from_config(cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -86,7 +86,8 @@ def test_quasi_neutrality_coef(tok64, tokamak_cfg):
     got = pic.quasi_neutrality_coef(pt)
     assert got.dtype == torch.float64 and got.shape == (64,)
     assert _rel(got.numpy(), ref) < 1e-13
-    p32 = et.from_config(dict(tokamak_cfg, npoints=64), dtype=torch.float32)
+    p32 = et.from_config(dict(tokamak_cfg, npoints=64), dtype=torch.float32,
+                         device="cpu")
     got32 = pic.quasi_neutrality_coef(p32, dtype=torch.float32)
     assert got32.dtype == torch.float32
     assert _rel(got32.numpy(), ref) < 1e-6

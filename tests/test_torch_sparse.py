@@ -36,15 +36,15 @@ def test_coeff_band_matches_jax_and_dense():
     """n=64, h=9: equal to emme_tpu's band, and to the port's dense matrix
     inside the band, exactly."""
     n, h = 64, 9
-    cb = singularity_coeff_band(n, h)
+    cb = singularity_coeff_band(n, h, device="cpu")
     assert cb.shape == (n, 2 * h + 1) and cb.dtype == torch.float64
     np.testing.assert_array_equal(cb.numpy(), np.asarray(jcoeff_band(n, h)))
-    cm = singularity_coeff_matrix(n).numpy()
+    cm = singularity_coeff_matrix(n, device="cpu").numpy()
     for i in range(n):
         for dj in range(-h, h + 1):
             if 0 <= i + dj < n:
                 assert cb[i, dj + h] == cm[i, i + dj]
-    cb32 = singularity_coeff_band(n, h, dtype=torch.float32)
+    cb32 = singularity_coeff_band(n, h, dtype=torch.float32, device="cpu")
     np.testing.assert_array_equal(
         cb32.numpy(), np.asarray(jcoeff_band(n, h, dtype=jnp.float32)))
 
@@ -55,7 +55,8 @@ def test_structures_match_jax(threshold):
     row_ptr, col_idx, row_of and block data as emme_tpu, exactly."""
     M = _banded_dense(64, 8, 3, seed=1, drop=(2,))
     M[:8, 8:16] *= 1e-3     # one small block for the threshold to drop
-    op = sparse.bdia_from_dense(M, block=8, threshold=threshold)
+    op = sparse.bdia_from_dense(M, block=8, threshold=threshold,
+                                device="cpu")
     jop = jsparse.bdia_from_dense(M, block=8, threshold=threshold)
     assert op.offsets == jop.offsets and 2 not in op.offsets
     assert op.data.dtype == torch.complex128
@@ -63,7 +64,7 @@ def test_structures_match_jax(threshold):
     assert op.nnzb == jop.nnzb and op.nnz == jop.nnz
 
     for got, want in ((sparse.bdia_to_bsr(op), jsparse.bdia_to_bsr(jop)),
-                      (sparse.bsr_from_dense(M, 8, threshold),
+                      (sparse.bsr_from_dense(M, 8, threshold, device="cpu"),
                        jsparse.bsr_from_dense(M, 8, threshold))):
         for name in ("row_ptr", "col_idx", "row_of"):
             t = getattr(got, name)
@@ -82,7 +83,7 @@ def test_bsr_matvec_matches_pallas_and_bdia(bs, r):
     within 1e-12 of the scale."""
     n = 64
     M = _banded_dense(n, bs, 2, seed=bs + r)
-    op = sparse.bdia_from_dense(M, block=bs)
+    op = sparse.bdia_from_dense(M, block=bs, device="cpu")
     bsr = sparse.bdia_to_bsr(op)
     rng = np.random.default_rng(7)
     shape = (n,) if r == 1 else (n, r)
@@ -106,7 +107,7 @@ def test_bdia_matvec_matches_jax():
     """bdia_matvec vs emme_tpu's bdia_matvec with dropped diagonals and a
     multivector: within 1e-12 of the scale."""
     M = _banded_dense(96, 16, 3, seed=4, drop=(-1, 2))
-    op = sparse.bdia_from_dense(M, block=16)
+    op = sparse.bdia_from_dense(M, block=16, device="cpu")
     rng = np.random.default_rng(5)
     x = rng.normal(size=(96, 4)) + 1j * rng.normal(size=(96, 4))
     yr, yi = jsparse.bdia_matvec(jsparse.bdia_from_dense(M, block=16),
@@ -120,7 +121,8 @@ def test_bsr_ref_complex64():
     """The plain version in complex64 agrees with the complex128 product
     at float32 rounding."""
     M = _banded_dense(64, 16, 1, seed=9)
-    bsr = sparse.bsr_from_dense(M.astype(np.complex64), block=16)
+    bsr = sparse.bsr_from_dense(M.astype(np.complex64), block=16,
+                                device="cpu")
     assert bsr.data.dtype == torch.complex64
     x = np.random.default_rng(3).normal(size=64).astype(np.complex64)
     y = sparse.bsr_matvec_ref(bsr, torch.as_tensor(x)).numpy()
@@ -132,7 +134,7 @@ def test_pick_spmv_routes():
     """pick_spmv: both routes give the same product; auto is BDIA on the
     CPU; a wrong name raises."""
     M = _banded_dense(64, 16, 1, seed=2)
-    op = sparse.bdia_from_dense(M, block=16)
+    op = sparse.bdia_from_dense(M, block=16, device="cpu")
     x = torch.as_tensor(np.random.default_rng(1).normal(size=64) + 0j)
     mv_a, route_a = sparse.pick_spmv(op)
     mv_b, route_b = sparse.pick_spmv(op, "bsr")
@@ -144,7 +146,7 @@ def test_pick_spmv_routes():
 
 def test_bsr_wrapper_rejects_other_devices():
     M = _banded_dense(32, 8, 1, seed=3)
-    bsr = sparse.bsr_from_dense(M, block=8)
+    bsr = sparse.bsr_from_dense(M, block=8, device="cpu")
     with pytest.raises(ValueError):
         cuda_spmv.bsr_matvec(bsr, torch.zeros(32, dtype=torch.complex128,
                                               device="meta"))
@@ -153,14 +155,14 @@ def test_bsr_wrapper_rejects_other_devices():
 def test_dumps_move_between_packages(tmp_path):
     """A dump written by either package reads back in the other."""
     M = _banded_dense(48, 16, 1, seed=6)
-    op = sparse.bdia_from_dense(M, block=16)
+    op = sparse.bdia_from_dense(M, block=16, device="cpu")
     sparse.save_bdia_dump(op, tmp_path / "port.bin")
     jop = jsparse.load_bdia_dump(tmp_path / "port.bin")
     assert jop.offsets == op.offsets and (jop.n, jop.block) == (48, 16)
     np.testing.assert_array_equal(np.asarray(jop.data), _planes(op.data))
     jsparse.save_bdia_dump(jsparse.bdia_from_dense(M, block=16),
                            tmp_path / "jax.bin")
-    back = sparse.load_bdia_dump(tmp_path / "jax.bin")
+    back = sparse.load_bdia_dump(tmp_path / "jax.bin", device="cpu")
     assert back.offsets == op.offsets
     assert torch.equal(back.data, op.data)
 
@@ -171,11 +173,11 @@ def test_convert_bdia_from_arrays():
     M = _banded_dense(64, 16, 2, seed=8)
     jop = jsparse.bdia_from_dense(M, block=16)
     op = convert.bdia_from_arrays(np.asarray(jop.data), jop.offsets, jop.n,
-                                  jop.block)
+                                  jop.block, device="cpu")
     assert op.offsets == jop.offsets and op.data.dtype == torch.complex128
     np.testing.assert_array_equal(_planes(op.data), np.asarray(jop.data))
     jop32 = jsparse.bdia_from_dense(M.astype(np.complex64), block=16)
     op32 = convert.bdia_from_arrays(np.asarray(jop32.data), jop32.offsets,
-                                    jop32.n, jop32.block)
+                                    jop32.n, jop32.block, device="cpu")
     assert op32.data.dtype == torch.complex64
     np.testing.assert_array_equal(_planes(op32.data), np.asarray(jop32.data))

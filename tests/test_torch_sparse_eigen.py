@@ -50,11 +50,11 @@ def _setup(cfg, n, dtype, h_el):
     cfg = dict(cfg, npoints=n)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     pj = emme_tpu.from_config(cfg, dtype=jdt)
-    pt = et.from_config(cfg, dtype=tdt)
+    pt = et.from_config(cfg, dtype=tdt, device="cpu")
     return ((pj, JGrid.create(pj.length, n, dtype=jdt),
              jcoeff_band(n, h_el, dtype=jdt)),
-            (pt, Grid.create(pt.length, n, dtype=tdt),
-             singularity_coeff_band(n, h_el, dtype=tdt)))
+            (pt, Grid.create(pt.length, n, dtype=tdt, device="cpu"),
+             singularity_coeff_band(n, h_el, dtype=tdt, device="cpu")))
 
 
 def test_assemble_bdia_es_tok64(tokamak_cfg):
@@ -122,7 +122,8 @@ def test_arnoldi_matches_jax():
     n, m = 40, 10
     A = rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n))
     At = torch.as_tensor(A)
-    V, H = arnoldi.arnoldi_factorization(lambda x: At @ x, n, m)
+    V, H = arnoldi.arnoldi_factorization(lambda x: At @ x, n, m,
+                                         device="cpu")
     Ar, Ai = jnp.asarray(A.real), jnp.asarray(A.imag)
     (Vr, Vi), (Hr, Hi) = jarnoldi.arnoldi_factorization(
         lambda xr, xi: (Ar @ xr - Ai @ xi, Ar @ xi + Ai @ xr), n, m)
@@ -162,7 +163,7 @@ def test_newton_step_from_jax_state(tok32_jax_state, step):
 
     st = convert.sparse_state_from_arrays(
         np.asarray(sj.omega), np.asarray(sj.d_omega), arrays(sj.M),
-        arrays(sj.dM))
+        arrays(sj.dM), device="cpu")
     assert st.M.data.dtype == torch.complex128
     nt = getattr(se, step)(pt, gt, ct, st, h, bs, quad=QUAD)
     dj = complex(np.asarray(nj.d_omega))
@@ -178,7 +179,8 @@ def tok32_slice(tokamak_cfg):
     cfg = dict(tokamak_cfg, npoints=32)
     before = cuda_spmv.LAUNCHES
     st, sj = {}, {}
-    port = se.solve(et.from_config(cfg), GUESS, stats=st, **SLICE)
+    port = se.solve(et.from_config(cfg, device="cpu"), GUESS, stats=st,
+                    **SLICE)
     assert cuda_spmv.LAUNCHES == before
     ref = jse.solve(emme_tpu.from_config(cfg), GUESS, stats=sj, **SLICE)
     return port, st, ref, sj
@@ -218,7 +220,7 @@ def test_host64_golden(tok32_slice, tokamak_cfg, golden_eigenvalues):
     seeded at the slice's omega: within 2e-6 of golden tok32, a unit
     complex128 eigenvector."""
     (om0, _, _, _), _, _, _ = tok32_slice
-    p = et.from_config(dict(tokamak_cfg, npoints=32))
+    p = et.from_config(dict(tokamak_cfg, npoints=32), device="cpu")
     om, vec, steps, _ = se.solve(p, om0, tol=1e-6, block=8, band_deta=20.0,
                                  host64=True)
     ref = complex(*golden_eigenvalues["tok32"]["omega"])
@@ -232,7 +234,7 @@ def test_solve_shifts_and_argument_checks(tokamak_cfg):
     """solve_shifts runs each shift in order and gives solve's result; a
     shift that raises yields (nan, None, 0) with a warning; loop='device',
     an unknown method and fused float64 raise."""
-    p = et.from_config(dict(tokamak_cfg, npoints=32))
+    p = et.from_config(dict(tokamak_cfg, npoints=32), device="cpu")
     kw = dict(tol=1e-6, block=8, band_deta=20.0, quad=QUAD, m_krylov=4)
     om, vec, steps, _ = se.solve(p, GUESS, **kw)
     out = se.solve_shifts(p, [GUESS], **kw)
