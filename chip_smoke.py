@@ -16,10 +16,32 @@ check exits non-zero:
    max(scale, 1)) and on the n=128 stellarator pairs (ms=(0,1,2), bar
    5e-6 max(scale, 1)); median of 3 timed calls of each after a warm-up.
 4. slice: the main path, from_config(tokamak, npoints=1024, float32, cuda)
-   -> eigen.solve(p, -0.8+0.25j, tol=1e-5, chunk=16384), twice; the second
-   run is timed, counted (K1 launches must equal tiers x (2 + steps)) and
-   checked against golden tok1024 (relative error < 1e-5).
-5. breakdown: one assembly, one trace solve and one SVD at n=1024, timed.
+   -> eigen.solve(p, -0.8+0.25j, tol=1e-5, chunk=16384) at its defaults on
+   a card (the device loop, the null vector by inverse iteration), twice;
+   the second run is timed, counted (K1 launches must equal tiers x (2 +
+   the steps the loop queued)) and checked against golden tok1024 (relative
+   error < 1e-5).
+5. breakdown: one assembly, one trace solve, one SVD and one inverse
+   iteration at n=1024, timed.
+5b. dense_certify: the same case with tol=1e-6 and host64=True (complex128
+   polish on the card), warm-up then timed: within 2e-6 of golden tok1024
+   (tests/test_eigen.py:90; the JAX package's TPU record is 1.41e-6 from
+   it, BENCH_r05.json).
+5c. stel_slice: this slice's path at full width, from_config(stellarator,
+   npoints=1024, float32) -> eigen.solve(sp, -1.656+2.490j, tol=1e-6,
+   chunk=16384, host64=True) as bench.py:89-104 runs it (electromagnetic,
+   operator 2048 x 2048), warm-up then timed and counted: K1 against its
+   plain version on every tier with ms=(0,1,2) first; omega within 2e-4 of
+   bench.py:94's golden (the JAX package's record: 1.31e-5 from it); K1
+   launches must equal tiers x assemblies, all with three moments; residual
+   ||M v|| / ||M||_F of the polished pair; peak device memory; one
+   assembly and K1's part of it, timed.
+5d. dense_methods: tok1024 float32 with method="QRSecant" and
+   "BorderedSecant", each within 1e-5 of golden, and one
+   qr_column_pivoted, timed; loop="device" against loop="host" (same
+   steps, omega within 1e-6, the host reads of each); the null vector by
+   inverse iteration against the SVD's on the converged M (correlation >
+   1 - 1e-5, residuals, times).
 6. build_pic: kernels K2, K3, K4 compiled from csrc/pic.cu (started in
    parallel with K1's build in phase 2).
 7. grid_sync_probe: the cooperative-launch attribute, K3's launch shape
@@ -49,9 +71,11 @@ check exits non-zero:
 11. build_spmv: kernel K5 compiled from csrc/spmv.cu (started in parallel
    with K1's build in phase 2); registers and spills from ptxas.
 12. spmv_vs_plain: K5 against bsr_matvec_ref on the tok8192 operator of
-   the banded slice (complex64, r = 1 and 16, bar 1e-5 of scale) and on
-   the tok1024 operator in complex128 (bar 1e-12 of scale); ms of K5, of
-   the plain version and of bdia_matvec, and K5's GB/s of stored blocks.
+   the banded slice (complex64, r = 1, 8, 16 and 32, bar 1e-5 of scale)
+   and on the tok1024 operator in complex128 (bar 1e-12 of scale); two
+   runs of K5 must repeat bit for bit; ms of K5, of the plain version and
+   of bdia_matvec, K5's GB/s of stored blocks and its share of the bound.
+   The phase has a time limit of its own (120 s).
 13. banded_kernel_vs_plain: K1 and its plain version on the first 2^17
    pairs of each tier section of the tok8192 kernel table, each against
    the plain math in float64 on the same inputs: K1 within the phase-3 bar
@@ -94,10 +118,12 @@ The last three lines are the kernels JSON, the nvidia-smi line and
 
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -111,6 +137,13 @@ SOLVE_BAR = 1e-5   # relative error of omega vs golden tok1024
 RESIDUAL_BAR = 1e-4  # ||M v|| / ||M||_F at the converged float32 operator
 N_TOK = 1024       # the main path's grid (bench.py: tok1024)
 N_STEL = 128       # the electromagnetic kernel check's grid
+CERTIFY_BAR = 2e-6   # tests/test_eigen.py:90, host64 vs golden
+# bench.py:94,104: the stellarator at n=1024, its golden and its bar; the
+# JAX package's own record is 1.31e-5 from the golden
+STEL_GUESS = -1.656 + 2.490j
+STEL_GOLDEN = complex(-1.65655594094, 2.49032058254)
+STEL_BAR = 2e-4
+K5_TIME_LIMIT_S = 120
 # tests/goldens/eigenvalues.json "pic_tok1024": the C++ reference's fit of
 # the canonical PIC run (its RNG differs, so the check is statistical)
 GOLDEN_PIC = complex(0.837758, 0.203384)
@@ -178,6 +211,19 @@ def emit_build(phase, rec, **fields):
 def check(ok, what):
     if not ok:
         raise SystemExit(f"chip_smoke: check failed: {what}")
+
+
+def watchdog(seconds, what):
+    """End the process with code 3 unless the returned timer is cancelled
+    within ``seconds``: a kernel that hangs fails fast."""
+    def stop():
+        print(f"chip_smoke: {what} passed its time limit of {seconds} s",
+              file=sys.stderr, flush=True)
+        os._exit(3)
+    t = threading.Timer(seconds, stop)
+    t.daemon = True
+    t.start()
+    return t
 
 
 def timed(fn, torch, repeats=3):
@@ -673,11 +719,13 @@ def spmv_compare(torch, sparse, cuda_spmv, op, x, bar):
     error, scale and device times."""
     bsr = sparse.bdia_to_bsr(op)
     got = cuda_spmv.bsr_matvec(bsr, x)
+    again = cuda_spmv.bsr_matvec(bsr, x)
     ref = sparse.bsr_matvec_ref(bsr, x)
     via_bdia = sparse.bdia_matvec(op, x)
     torch.cuda.synchronize()
     check(got.is_cuda and bool(torch.isfinite(got).all()),
           "K5 output on the card and finite")
+    check(torch.equal(got, again), "K5 twice: bit-equal")
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
     check(err <= bar * scale, f"K5 vs plain {err:.3e} > {bar} x {scale:.3e}")
@@ -696,7 +744,9 @@ def spmv_compare(torch, sparse, cuda_spmv, op, x, bar):
             "dtype": str(op.data.dtype).removeprefix("torch."),
             "nnzb": bsr.nnzb, "block": bsr.block, "max_abs_err": err,
             "scale": scale, "kernel_ms": k_ms, "plain_ms": p_ms,
-            "bdia_ms": d_ms, "kernel_gb_per_s": stored / k_ms / 1e6}
+            "bdia_ms": d_ms, "kernel_gb_per_s": stored / k_ms / 1e6,
+            "share_of_bound": bnd["bound_ms"] / k_ms,
+            "speedup_vs_plain": p_ms / k_ms, "repeat_bit_equal": True}
 
 
 def tpu_precision_solve(torch, banded, solve):
@@ -770,9 +820,10 @@ def banded_phases(torch, build_rec, card):
                           fused=True)
 
     # 12. spmv_vs_plain
+    limit = watchdog(K5_TIME_LIMIT_S, "phase spmv_vs_plain")
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for r in (1, 16):
+    for r in (1, 8, 16, 32):
         shape = (N_BAND,) if r == 1 else (N_BAND, r)
         x = torch.randn(shape, dtype=torch.complex64, device=dev,
                         generator=gen)
@@ -799,6 +850,7 @@ def banded_phases(torch, build_rec, card):
         emit("spmv_vs_plain", case=f"tok{N_TOK} band_deta 20", **rows[-1],
              card=card)
     del op1
+    limit.cancel()
 
     # 13. banded_kernel_vs_plain: the first pairs of each tier section
     k1_rows = []
@@ -957,6 +1009,7 @@ def banded_phases(torch, build_rec, card):
           f"< {RECORD_BAR}")
 
     k5 = rows[0]
+    k5_r16 = next(r for r in rows if r["r"] == 16 and r["dtype"] == "complex64")
     return ({"name": "bsr_spmv", "route": "cuda",
              "source": "emme_tpu_torch/csrc/spmv.cu",
              "replaces": "emme_tpu/ops/sparse.py:109",
@@ -967,9 +1020,198 @@ def banded_phases(torch, build_rec, card):
              "ms": k5["kernel_ms"], "plain_ms": k5["plain_ms"],
              "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
              "library_ms": k5["library_ms"],
-             "ms_at": f"tok{N_BAND}, r = 1, complex64"},
+             "ms_at": f"tok{N_BAND}, r = 1, complex64",
+             "r16": {k: k5_r16[k] for k in (
+                 "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                 "bound_by", "share_of_bound", "max_abs_err")}},
             {"launches": k1_launches,
              "max_abs_err": max(r["max_abs_err"] for r in k1_rows)})
+
+
+def vec_corr(a, b, torch):
+    a, b = a.to(torch.complex128), b.to(torch.complex128)
+    return float(torch.vdot(a, b).abs() / (torch.linalg.vector_norm(a)
+                                           * torch.linalg.vector_norm(b)))
+
+
+def counted_solve(torch, cuda_kappa, eigen, solve):
+    """One warm-up call of ``solve()``, then one timed and counted: returns
+    (result, seconds, first-run seconds, K1 launches by moments, host reads,
+    what the solve did)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solve()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    cuda_kappa.LAUNCHES = 0
+    cuda_kappa.LAUNCHES_BY_MS.clear()
+    eigen.HOST_READS.update(blocking=0, flag_polls=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = solve()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (out, seconds, first_s, dict(cuda_kappa.LAUNCHES_BY_MS),
+            dict(eigen.HOST_READS), dict(eigen.LAST_SOLVE))
+
+
+def dense_phases(torch, card, p, state):
+    """Phases 5b-5d (the rest of the dense solver); returns K1's launches on
+    these paths and its stel1024 comparison rows."""
+    from emme_tpu_torch import from_config
+    from emme_tpu_torch.grid import Grid
+    from emme_tpu_torch.ops import cuda_kappa, kernels, linalg
+    from emme_tpu_torch.ops.singularity import singularity_coeff_matrix
+    from emme_tpu_torch.solvers import eigen
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    n_tiers = len(kernels.tier_thresholds_ij(
+        2.0 * float(p.length) / (p.npoints - 1), p.npoints))
+
+    # 5b. dense_certify
+    (om, vec, n_steps, _), secs, first_s, by_ms, reads, did = counted_solve(
+        torch, cuda_kappa, eigen, lambda: eigen.solve(
+            p, GUESS, tol=1e-6, chunk=16384, host64=True))
+    rel = abs(om - GOLDEN_TOK1024) / abs(GOLDEN_TOK1024)
+    assemblies = 2 + did["queued_steps"] + did["polish_assemblies"]
+    cert_launches = sum(by_ms.values())
+    emit("dense_certify", case=f"tok{N_TOK} float32 dense host64 tol 1e-6",
+         omega=[om.real, om.imag],
+         golden=[GOLDEN_TOK1024.real, GOLDEN_TOK1024.imag], rel_err=rel,
+         steps=n_steps, loop_steps=did["steps"],
+         extra_steps=did["polish_steps"], loop=did["loop"],
+         assemblies=assemblies, launches=cert_launches, host_reads=reads,
+         seconds=secs, first_run_seconds=first_s, card=card)
+    check(rel < CERTIFY_BAR, f"certified omega rel err {rel:.3e} < {CERTIFY_BAR}")
+    check(n_steps == did["steps"] + did["polish_steps"], "step counting")
+    check(by_ms == {(0,): n_tiers * assemblies},
+          f"K1 launches {by_ms} == {n_tiers} tiers x {assemblies} assemblies")
+    check(vec.is_cuda and vec.dtype == torch.complex128
+          and abs(float(torch.linalg.vector_norm(vec)) - 1.0) < 1e-12,
+          "certified eigenvector: complex128, unit norm, on the card")
+
+    # 5c. stel_slice: the electromagnetic path at full width
+    sp = from_config(load_cfg("stellarator", N_TOK), dtype=f32)
+    check(sp.electromagnetic and sp.device.type == "cuda",
+          "stellarator: electromagnetic, on the card")
+    gs = Grid.create(sp.length, sp.npoints, dtype=f32)
+    tiers_s = kernels.tier_thresholds_ij(
+        2.0 * float(sp.length) / (sp.npoints - 1), sp.npoints)
+    groups_s = eigen.pair_plan(sp.npoints, tiers_s, str(gs.eta.device))["groups"]
+    om_s = torch.tensor(STEL_GUESS, dtype=torch.complex64, device=dev)
+    stel_rows = []
+    for t, (iu, ju, spec) in enumerate(groups_s):
+        r = compare(sp, gs.eta[iu], gs.eta[ju], om_s, (0, 1, 2),
+                    kernels.scaled_quad(None, f32, spec), EM_BAR, torch,
+                    cuda_kappa)
+        stel_rows.append(r)
+        emit("kernel_vs_plain", case=f"stel{N_TOK}", tier=t,
+             ms_moments=[0, 1, 2], **r)
+    torch.cuda.reset_peak_memory_stats()
+    (om, vec, n_steps, st), secs, first_s, by_ms, reads, did = counted_solve(
+        torch, cuda_kappa, eigen, lambda: eigen.solve(
+            sp, STEL_GUESS, tol=1e-6, chunk=16384, host64=True))
+    peak = torch.cuda.max_memory_allocated()
+    rel = abs(om - STEL_GOLDEN) / abs(STEL_GOLDEN)
+    assemblies = 2 + did["queued_steps"] + did["polish_assemblies"]
+    stel_launches = sum(by_ms.values())
+    coeff_s = singularity_coeff_matrix(sp.npoints, dtype=f32)
+    asm = lambda: eigen.assemble_matrix(  # noqa: E731
+        sp, gs, coeff_s, torch.tensor(om, dtype=torch.complex64, device=dev),
+        None, 16384, tiers_s, True)
+    asm_ms, M = timed(asm, torch)
+    M = M.to(torch.complex128)
+    residual = float(torch.linalg.vector_norm(M @ vec)
+                     / torch.linalg.matrix_norm(M))
+    dim = 2 * sp.npoints
+    emit("stel_slice", case=f"stel{N_TOK} float32 electromagnetic dense "
+         "host64 tol 1e-6", dim=dim, omega=[om.real, om.imag],
+         golden=[STEL_GOLDEN.real, STEL_GOLDEN.imag], rel_err=rel,
+         jax_package_rel_err=1.31e-5, steps=n_steps, loop_steps=did["steps"],
+         extra_steps=did["polish_steps"], loop=did["loop"],
+         queued_steps=did["queued_steps"], assemblies=assemblies,
+         tiers=len(groups_s), launches=stel_launches,
+         launches_by_moments={str(k): v for k, v in by_ms.items()},
+         host_reads=reads, residual=residual, seconds=secs,
+         first_run_seconds=first_s, assembly_ms=asm_ms,
+         kernel_ms_per_assembly=sum(r["kernel_ms"] for r in stel_rows),
+         plain_ms_per_assembly=sum(r["plain_ms"] for r in stel_rows),
+         peak_memory_bytes=peak, card=card)
+    check(rel < STEL_BAR, f"stel{N_TOK} omega rel err {rel:.3e} < {STEL_BAR}")
+    check(by_ms == {(0, 1, 2): len(groups_s) * assemblies},
+          f"K1 launches {by_ms} == {len(groups_s)} tiers x {assemblies} "
+          "assemblies, all with three moments")
+    check(st.M.shape == (dim, dim) and st.M.dtype == torch.complex64
+          and vec.shape == (dim,) and vec.dtype == torch.complex128
+          and vec.is_cuda, "shapes and dtypes")
+    check(bool(torch.isfinite(st.M).all()) and bool(torch.isfinite(vec).all()),
+          "finite operator and eigenvector")
+    check(residual < RESIDUAL_BAR,
+          f"||M v||/||M||_F {residual:.3e} < {RESIDUAL_BAR}")
+    del M, st, coeff_s
+
+    # 5d. dense_methods
+    # QRSecant takes the host loop by default: on the device loop the one
+    # masked step past convergence is a whole pivoted-QR sweep; both timed
+    methods = {}
+    for method, loop in (("QRSecant", None), ("QRSecant", "device"),
+                         ("BorderedSecant", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        om, vec, n_steps, _ = eigen.solve(p, GUESS, tol=1e-5, chunk=16384,
+                                          method=method, loop=loop)
+        torch.cuda.synchronize()
+        rel = abs(om - GOLDEN_TOK1024) / abs(GOLDEN_TOK1024)
+        did = dict(eigen.LAST_SOLVE)
+        methods[method if loop is None else f"{method} loop={loop}"] = {
+            "omega": [om.real, om.imag], "rel_err": rel, "steps": n_steps,
+            "loop": did["loop"], "queued_steps": did["queued_steps"],
+            "seconds": time.perf_counter() - t0}
+        check(rel < SOLVE_BAR, f"{method} omega rel err {rel:.3e} < {SOLVE_BAR}")
+    check(methods["QRSecant"]["loop"] == "host"
+          and methods["BorderedSecant"]["loop"] == "device",
+          f"default loops by method: {methods}")
+    check(methods["QRSecant"]["steps"]
+          == methods["QRSecant loop=device"]["steps"],
+          f"QRSecant steps on both loops: {methods}")
+    qr_ms, _ = timed(lambda: linalg.qr_column_pivoted(state.M), torch,
+                     repeats=1)
+    loops = {}
+    for loop in ("host", "device"):
+        (om, vec, n_steps, _), secs, _, _, reads, did = counted_solve(
+            torch, cuda_kappa, eigen, lambda: eigen.solve(
+                p, GUESS, tol=1e-5, chunk=16384, loop=loop))
+        loops[loop] = {"omega": om, "steps": n_steps, "seconds": secs,
+                       "host_reads": reads,
+                       "queued_steps": did["queued_steps"]}
+    d_loop = abs(loops["device"]["omega"] - loops["host"]["omega"]) \
+        / abs(loops["host"]["omega"])
+    check(loops["device"]["steps"] == loops["host"]["steps"],
+          f"device and host loop steps: {loops}")
+    check(d_loop < 1e-6, f"device vs host loop omega {d_loop:.3e} < 1e-6")
+    check(loops["device"]["host_reads"]["blocking"] == 2,
+          f"the device loop reads twice a solve: {loops['device']}")
+    for v in loops.values():
+        v["omega"] = [v["omega"].real, v["omega"].imag]
+    M = state.M
+    inv_ms, v_inv = timed(lambda: linalg.null_space_vector(M, "inverse"),
+                          torch)
+    svd_ms, v_svd = timed(lambda: linalg.null_space_vector(M, "svd"), torch)
+    corr = vec_corr(v_inv, v_svd, torch)
+    res = {k: float(torch.linalg.vector_norm(M @ v)
+                    / torch.linalg.matrix_norm(M))
+           for k, v in (("inverse", v_inv), ("svd", v_svd))}
+    check(corr > 1 - 1e-5, f"inverse vs svd null vector {corr} > 1 - 1e-5")
+    emit("dense_methods", case=f"tok{N_TOK} float32 dense tol 1e-5",
+         methods=methods, qr_column_pivoted_ms=qr_ms, loops=loops,
+         loop_omega_rel_diff=d_loop,
+         null_vector={"correlation": corr, "residual": res,
+                      "inverse_ms": inv_ms, "svd_ms": svd_ms}, card=card)
+    return {"launches": cert_launches + stel_launches,
+            "certify_launches": cert_launches, "stel_launches": stel_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in stel_rows),
+            "stel_rows": stel_rows}
 
 
 def main():
@@ -1043,18 +1285,22 @@ def main():
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     cuda_kappa.LAUNCHES = 0
+    eigen.HOST_READS.update(blocking=0, flag_polls=0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     om, vec, n_steps, state = solve()
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = cuda_kappa.LAUNCHES
+    did, reads = dict(eigen.LAST_SOLVE), dict(eigen.HOST_READS)
     rel = abs(om - GOLDEN_TOK1024) / abs(GOLDEN_TOK1024)
     M = state.M
     residual = float(torch.linalg.vector_norm(M @ vec)
                      / torch.linalg.matrix_norm(M))
-    check(launches == len(groups) * (2 + n_steps),
-          f"K1 launches {launches} == {len(groups)} tiers x (2 + {n_steps})")
+    check(did["loop"] == "device", "the card's default is the device loop")
+    check(launches == len(groups) * (2 + did["queued_steps"]),
+          f"K1 launches {launches} == {len(groups)} tiers x (2 + "
+          f"{did['queued_steps']} queued steps)")
     check(M.is_cuda and vec.is_cuda and state.omega.is_cuda,
           "M, eigenvector and omega on the card")
     check(M.shape == (N_TOK, N_TOK) and vec.shape == (N_TOK,)
@@ -1065,7 +1311,8 @@ def main():
     check(residual < RESIDUAL_BAR, f"||M v||/||M|| {residual:.3e} < {RESIDUAL_BAR}")
     emit("slice", case=f"tok{N_TOK} float32 dense TraceSecant", omega=[om.real, om.imag],
          golden=[GOLDEN_TOK1024.real, GOLDEN_TOK1024.imag], rel_err=rel,
-         steps=n_steps, seconds=solve_s, first_run_seconds=first_s,
+         steps=n_steps, queued_steps=did["queued_steps"], loop=did["loop"],
+         host_reads=reads, seconds=solve_s, first_run_seconds=first_s,
          launches=launches, tiers=len(groups), residual=residual, card=card)
 
     # 5. breakdown of one step's parts at n=1024
@@ -1074,27 +1321,35 @@ def main():
         p, grid, coeff, state.omega, None, 16384, tiers, True), torch)
     lin_ms, _ = timed(lambda: linalg.complex_solve_trace(M, state.dM),
                       torch)
-    svd_ms, _ = timed(lambda: eigen.null_space(M), torch)
+    null_ms, _ = timed(lambda: eigen.null_space(M), torch)
+    svd_ms, _ = timed(lambda: linalg.null_space_vector(M, "svd"), torch)
     emit("breakdown", assembly_ms=asm_ms, kernel_ms_per_assembly=sum(
-        r["kernel_ms"] for r in rows), trace_solve_ms=lin_ms, svd_ms=svd_ms,
-         card=card)
+        r["kernel_ms"] for r in rows), trace_solve_ms=lin_ms,
+         null_vector_ms=null_ms, svd_ms=svd_ms, card=card)
 
+    k1_dense = dense_phases(torch, card, p, state)
+    del state, M
     pic_kernels = pic_phases(torch, builds["pic"], card)
     k5, k1_banded = banded_phases(torch, builds["spmv"], card)
 
     k1_bound = bound(sum(r["bytes"] for r in rows),
                      sum(r["flop"] for r in rows))
+    k1_stel_bound = bound(sum(r["bytes"] for r in k1_dense["stel_rows"]),
+                          sum(r["flop"] for r in k1_dense["stel_rows"]))
     kernels_line = {"kernels": [{
         "name": "kappa_pairs",
         "route": "cuda",
         "source": "emme_tpu_torch/csrc/kappa.cu",
         "replaces": "emme_tpu/ops/pallas_kappa.py:241",
-        "launches": launches + k1_banded["launches"],
-        "launches_from": f"eigen.solve tok{N_TOK} ({launches}) + "
+        "launches": launches + k1_dense["launches"] + k1_banded["launches"],
+        "launches_from": f"eigen.solve tok{N_TOK} ({launches}) + host64 "
+                         f"({k1_dense['certify_launches']}) + stel{N_TOK} "
+                         f"host64 ({k1_dense['stel_launches']}) + "
                          f"sparse_eigen.solve tok{N_BAND} "
                          f"({k1_banded['launches']})",
         "max_abs_err": max([r["max_abs_err"] for r in rows]
-                           + [r_em["max_abs_err"], k1_banded["max_abs_err"]]),
+                           + [r_em["max_abs_err"], k1_dense["max_abs_err"],
+                              k1_banded["max_abs_err"]]),
         "ms": sum(r["kernel_ms"] for r in rows),
         "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": k1_bound["bound_ms"], "bound_by": k1_bound["bound_by"],
@@ -1102,6 +1357,10 @@ def main():
         "flop_per_unit": k1_bound["bound_flop"] / sum(r["nodes"] for r in rows),
         "static_flop_per_unit": K1_FLOP_PER_NODE["static"],
         "ms_at": f"one tok{N_TOK} assembly, all tiers",
+        "stel_ms": sum(r["kernel_ms"] for r in k1_dense["stel_rows"]),
+        "stel_plain_ms": sum(r["plain_ms"] for r in k1_dense["stel_rows"]),
+        "stel_bound_ms": k1_stel_bound["bound_ms"],
+        "stel_ms_at": f"one stel{N_TOK} assembly, all tiers, three moments",
     }] + pic_kernels + [k5]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)

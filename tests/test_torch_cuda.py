@@ -77,14 +77,17 @@ def test_kernel_matches_plain(card, case):
 @pytest.mark.cuda
 def test_solve_f32_tok128_through_kernel(card):
     """The main path's solve at n=128 on the card: every assembly goes
-    through K1 (tiers x (2 + steps) launches) and omega lands within 1e-5
-    of golden tok128."""
+    through K1 (tiers x (2 + the steps the loop queued) launches: the
+    device loop, the default there, queues one masked step past
+    convergence) and omega lands within 1e-5 of golden tok128."""
     p = et.from_config(_cfg("tokamak", 128), dtype=torch.float32, device=card)
     dx = 2.0 * float(p.length) / (p.npoints - 1)
     n_tiers = len(kernels.tier_thresholds_ij(dx, p.npoints))
     before = cuda_kappa.LAUNCHES
     om, vec, n_steps, state = eigen.solve(p, -0.8 + 0.25j, tol=1e-5)
-    assert cuda_kappa.LAUNCHES - before == n_tiers * (2 + n_steps)
+    queued = eigen.LAST_SOLVE["queued_steps"]
+    assert queued in (n_steps, n_steps + 1)
+    assert cuda_kappa.LAUNCHES - before == n_tiers * (2 + queued)
     assert state.M.is_cuda and vec.is_cuda
     assert abs(om - GOLDEN_TOK128) / abs(GOLDEN_TOK128) < 1e-5
 
@@ -338,6 +341,103 @@ def test_bsr_spmv_element_loads(card, dtype, bar):
         ref = sparse.bsr_matvec_ref(bsr, x)
         torch.cuda.synchronize()
         assert float((y - ref).abs().max()) <= bar * float(ref.abs().max())
+
+
+def _banded_bsr(card, bs, nb, dtype, seed):
+    """A random block-banded operator (half-width 3, one block diagonal and
+    one whole block row dropped) as a BSROperator on the card."""
+    n = bs * nb
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n))
+    off = np.subtract.outer(np.arange(nb), np.arange(nb))
+    keep = (np.abs(off) <= 3) & (off != 2)
+    keep[2, :] = False
+    M = np.where(np.kron(keep, np.ones((bs, bs), bool)), M, 0.0)
+    M = M.astype(np.complex64 if dtype == torch.complex64 else np.complex128)
+    bsr = sparse.bsr_from_dense(M, block=bs, device=card)
+    assert bsr.data.dtype == dtype
+    assert int(bsr.row_ptr[3] - bsr.row_ptr[2]) == 0
+    return bsr, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [32, 128, 9])
+@pytest.mark.parametrize("r", [2, 8, 16, 17, 40])
+@pytest.mark.parametrize("dtype,bar", [(torch.complex64, 1e-5),
+                                       (torch.complex128, 1e-12)])
+def test_bsr_spmm_matches_plain(card, bs, r, dtype, bar):
+    """K5 with several right-hand sides vs bsr_matvec_ref on a banded
+    operator with a dropped block row: the ring kernel (complex64, even
+    block) and the generic kernel (complex128, the odd block 9), r below, at
+    and above the 16 a pass takes, within 1e-5 of scale in complex64 and
+    1e-12 in complex128; the dropped row's y is exactly zero; two runs
+    repeat bit for bit; one launch counted per call."""
+    bsr, rng = _banded_bsr(card, bs, 8, dtype, 100 * bs + r)
+    n = bsr.n
+    x = torch.as_tensor(rng.normal(size=(n, r)) + 1j * rng.normal(size=(n, r)),
+                        dtype=dtype, device=card)
+    before = cuda_spmv.LAUNCHES
+    y = sparse.bsr_matvec(bsr, x)
+    again = sparse.bsr_matvec(bsr, x)
+    torch.cuda.synchronize()
+    assert cuda_spmv.LAUNCHES == before + 2
+    ref = sparse.bsr_matvec_ref(bsr, x)
+    assert y.is_cuda and y.shape == (n, r) and y.dtype == dtype
+    assert float((y - ref).abs().max()) <= bar * float(ref.abs().max())
+    assert float(y[2 * bs:3 * bs].abs().max()) == 0.0
+    assert torch.equal(y, again)
+
+
+@pytest.mark.cuda
+def test_bsr_spmm_unaligned_and_large_blocks(card):
+    """Shapes the ring kernel does not take go to the generic kernel and
+    agree with the plain version: an operator whose blocks start 8 bytes off
+    a 16-byte boundary, and a block of 192 (its ring would not fit in
+    shared memory)."""
+    bsr, rng = _banded_bsr(card, 32, 8, torch.complex64, 5)
+    buf = torch.empty(bsr.data.numel() + 1, dtype=torch.complex64,
+                      device=card)
+    buf[1:] = bsr.data.reshape(-1)
+    shifted = sparse.BSROperator(
+        data=buf[1:].view(bsr.data.shape), col_idx=bsr.col_idx,
+        row_of=bsr.row_of, row_ptr=bsr.row_ptr, n=bsr.n, block=bsr.block)
+    big, _ = _banded_bsr(card, 192, 8, torch.complex64, 6)
+    for op in (shifted, big):
+        x = torch.as_tensor(rng.normal(size=(op.n, 16))
+                            + 1j * rng.normal(size=(op.n, 16)),
+                            dtype=torch.complex64, device=card)
+        y = sparse.bsr_matvec(op, x)
+        ref = sparse.bsr_matvec_ref(op, x)
+        torch.cuda.synchronize()
+        assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_device_loop_matches_host_tok128(card):
+    """eigen.solve at tok128 float32 on the card: loop="device" (the
+    default there) returns the host loop's omega, step count and vector,
+    with two blocking host reads a solve against one a step and two."""
+    p = et.from_config(_cfg("tokamak", 128), dtype=torch.float32, device=card)
+    out, reads = {}, {}
+    for loop in ("host", "device", None):
+        eigen.HOST_READS.update(blocking=0, flag_polls=0)
+        out[loop] = eigen.solve(p, -0.8 + 0.25j, tol=1e-5, loop=loop)
+        reads[loop] = dict(eigen.HOST_READS)
+    assert eigen.LAST_SOLVE["loop"] == "device"
+    om_h, vec_h, n_h, st_h = out["host"]
+    for loop in ("device", None):
+        om_d, vec_d, n_d, st_d = out[loop]
+        assert n_d == n_h
+        assert abs(om_d - om_h) / abs(om_h) < 1e-6
+        corr = torch.vdot(vec_h, vec_d).abs() / (
+            torch.linalg.vector_norm(vec_h) * torch.linalg.vector_norm(vec_d))
+        assert float(corr) > 1 - 1e-5
+        assert reads[loop]["blocking"] == 2
+    assert reads["host"]["blocking"] == n_h + 2
+    # QRSecant's default stays the host loop: a masked step is a whole sweep
+    eigen.solve(p, -0.8 + 0.25j, tol=1e-5, method="QRSecant")
+    assert eigen.LAST_SOLVE["loop"] == "host"
+    assert abs(om_h - GOLDEN_TOK128) / abs(GOLDEN_TOK128) < 1e-5
 
 
 @pytest.mark.cuda

@@ -19,7 +19,7 @@ MODULES = [
     "emme_tpu_torch.solvers.cuda_pic", "emme_tpu_torch.solvers.arnoldi",
     "emme_tpu_torch.solvers.sparse_eigen",
     "emme_tpu_torch.tools", "emme_tpu_torch.tools.pic_bench",
-    "emme_tpu_torch.tools.sass_count",
+    "emme_tpu_torch.tools.sass_count", "emme_tpu_torch.tools.spmv_bench",
     "emme_tpu_torch.tools.div_const_check",
 ]
 
