@@ -15,6 +15,10 @@ check exits non-zero:
    every |i - j| tier of the n=1024 tokamak pairs (ms=(0,), bar 5e-7
    max(scale, 1)) and on the n=128 stellarator pairs (ms=(0,1,2), bar
    5e-6 max(scale, 1)); median of 3 timed calls of each after a warm-up.
+   Tier 0 (the near pairs, where the plain float32 version is the less
+   accurate side) is held to the plain math in float64 on the same inputs,
+   as phase 13 is: K1 within the bar of it, or no further from it than the
+   plain float32 version; its distance to the plain version is printed.
 4. slice: the main path, from_config(tokamak, npoints=1024, float32, cuda)
    -> eigen.solve(p, -0.8+0.25j, tol=1e-5, chunk=16384) at its defaults on
    a card (the device loop, the null vector by inverse iteration), twice;
@@ -39,7 +43,8 @@ check exits non-zero:
 5d. dense_methods: tok1024 float32 with method="QRSecant" and
    "BorderedSecant", each within 1e-5 of golden, and one
    qr_column_pivoted, timed; loop="device" against loop="host" (same
-   steps, omega within 1e-6, the host reads of each); the null vector by
+   steps, omega within 1e-6, the host reads of each: one blocking read a
+   solve on the device loop); the null vector by
    inverse iteration against the SVD's on the converged M (correlation >
    1 - 1e-5, residuals, times).
 6. build_pic: kernels K2, K3, K4 compiled from csrc/pic.cu (started in
@@ -88,7 +93,9 @@ check exits non-zero:
    ||M v|| / ||M||_F < 1e-4; its omega must land within 2e-5 of the dense
    float32 trace secant at n=8192 run from it (the untruncated operator;
    the distance to the JAX package's recorded TPU value, bench.py:135-136,
-   is printed too; phase 17 explains it).
+   is printed too; phase 17 explains it).  Then the same solve with
+   loop="device": the same steps, omega within 1e-6 of the host loop's,
+   both times and the blocking host reads of each.
 15. banded_breakdown: at n=8192, one assembly (and K1's share of it), the
    banded LU, the selected inverse with the trace, one banded solve, one
    Arnoldi stage and the null vector, in ms.
@@ -99,6 +106,37 @@ check exits non-zero:
    bf16 pass, float32 accumulation: a TPU's default precision); its omega
    must land within 1e-4 of the JAX package's recorded tok8192 value
    (bench.py:135-136), which phase 14's float32 omega misses.
+18. driver_eigen: the product surface.  An input file written from
+   tests/goldens/inputs/tokamak.json (npoints 1024) goes through
+   emme_tpu_torch.cli.main([input, "-o", out, "--f32", "--host64",
+   "--chunk", "16384", "-q"]) twice, the second timed and counted:
+   output.json's eigenvalue within 2e-6 of golden tok1024, an eigenvector
+   of 1024 entries, eigenMatrics/eigenMatrix.bin of 1024^2 x 16 bytes, the
+   quadrature guard's record, K1 launches > 0; its seconds beside phase
+   5b's for the same solve (the driver's own cost: guard, dump, JSON) and
+   the timer's sections ("All", "Iteration", "Output": the dump and
+   output.json; the guard is what is left of "All").
+19. driver_pic: the canonical PIC case from an input file ("method": "PIC",
+   "pic_backend": "fused", "stream_fields": false, --f32), twice: one launch
+   of K3 (and K4's self-check before it), the fit within 5 % / 10 % of
+   golden pic_tok1024.  Then 8 steps with "pic_launch": "stages" (24 + 24
+   launches of K2) and 16 steps on the default streaming path, whose dump
+   holds 16 x 1024 complex128 values.
+20. driver_scan: tokamak npoints 1024 --f32 with "eta_i": {"head": 3.0,
+   "step": 0.25, "tail": 3.5}: three points in walk order, each omega
+   within 2e-5 of a direct eigen.solve at that eta_i from the seed the walk
+   gave it, the checkpoint gone at the end; seconds and steps a point, and
+   whether a later point took more steps than the first.  Then the same scan at
+   npoints 32 in float64 on the card against
+   tests/goldens/scan_eta_i_tok32.json at 2e-5.
+21. driver_sparse: tokamak npoints 1024 with "eigen_backend": "sparse",
+   "band_deta": 20, "m_krylov": 16, "spmv_method": "bsr", --f32 --host64:
+   within 2e-6 of golden tok1024, the SpMV route K5's (16 + 1 + 50
+   launches), the banded dump read back by load_bdia_dump.
+22. eigen_timed: eigen.solve(p, -0.8+0.25j, tol=1e-5, chunk=16384,
+   timed=True) at tok1024: phase 4's omega within 1e-6, and the seconds a
+   step of " - linear solve", " - integration" and " - differential", each
+   ended by a device synchronize.
 
 The kernels JSON gives every kernel its bound: the larger of the bytes it
 must move (each input read once, each output written once) over 3.35 TB/s
@@ -123,6 +161,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -246,22 +285,41 @@ def load_cfg(name, npoints):
         return dict(json.load(f), npoints=npoints)
 
 
-def compare(p, eta_a, eta_b, omega, ms, quad, bar, torch, cuda_kappa):
+def compare(p, eta_a, eta_b, omega, ms, quad, bar, torch, cuda_kappa,
+            hold_to_f64=False):
     """K1 vs the plain version on one pair set: errors, scale, and core
-    times (inputs prepared once; kernel launch vs plain arithmetic)."""
+    times (inputs prepared once; kernel launch vs plain arithmetic).  K1 is
+    held to the plain float32 version at ``bar`` max(scale, 1); with
+    ``hold_to_f64`` to the plain math in float64 on the same float32 inputs
+    instead: within the bar of it, or no further from it than the plain
+    float32 version (the less accurate side on the near pairs)."""
     got = cuda_kappa.kappa_pairs_fused(p, eta_a, eta_b, omega, ms=ms, quad=quad)
     ref = cuda_kappa.kappa_pairs_ref(p, eta_a, eta_b, omega, ms=ms, quad=quad)
+    args = cuda_kappa._prepare(p, eta_a, eta_b, omega, quad)
+    mid, halfw, pair, scal, order = args
+    exact = cuda_kappa._finish(p, cuda_kappa._plain(
+        mid.double(), halfw.double(), pair.double(), scal.double(), order,
+        ms), ms) if hold_to_f64 else ref
     torch.cuda.synchronize()
-    errs, scales = [], []
-    for a, b in zip(got, ref):
+    errs, scales, vs_f64 = [], [], {}
+    for a, b, e in zip(got, ref, exact):
         check(a.is_cuda and bool(torch.isfinite(a).all()),
               "kernel output on the card and finite")
         errs.append(float((a - b).abs().max()))
         scales.append(float(b.abs().max()))
-        check(errs[-1] <= bar * max(scales[-1], 1.0),
-              f"kernel vs plain {errs[-1]:.3e} > {bar} max({scales[-1]:.3e}, 1)")
-    args = cuda_kappa._prepare(p, eta_a, eta_b, omega, quad)
-    mid, halfw, pair, scal, order = args
+        limit = bar * max(scales[-1], 1.0)
+        if hold_to_f64:
+            k1_err = float((a - e).abs().max())
+            plain_err = float((b - e).abs().max())
+            vs_f64 = {"k1_vs_f64": max(k1_err, vs_f64.get("k1_vs_f64", 0.0)),
+                      "plain_vs_f64": max(plain_err,
+                                          vs_f64.get("plain_vs_f64", 0.0))}
+            check(k1_err <= max(limit, plain_err),
+                  f"K1 vs float64 {k1_err:.3e} > max({limit:.3e}, plain vs "
+                  f"float64 {plain_err:.3e})")
+        else:
+            check(errs[-1] <= limit, f"kernel vs plain {errs[-1]:.3e} > "
+                                     f"{bar} max({scales[-1]:.3e}, 1)")
     k_ms, _ = timed(lambda: cuda_kappa._launch(mid, halfw, pair, scal, order,
                                                ms), torch)
     p_ms, _ = timed(lambda: cuda_kappa._plain(mid, halfw, pair, scal, order,
@@ -274,7 +332,7 @@ def compare(p, eta_a, eta_b, omega, ms, quad, bar, torch, cuda_kappa):
     return {"npairs": int(eta_a.shape[0]), "n_panels": int(mid.shape[1]),
             "order": order, "max_abs_err": max(errs), "scale": max(scales),
             "kernel_ms": k_ms, "plain_ms": p_ms, "wrapper_ms": w_ms,
-            "nodes": nodes, "asymptotic_share": asym,
+            "nodes": nodes, "asymptotic_share": asym, **vs_f64,
             "flop": nodes * by_branch(K1_FLOP_PER_NODE, asym),
             "bytes": nbytes(mid, halfw, pair, scal)
             + 4 * int(eta_a.shape[0]) * 2 * len(ms)}
@@ -875,6 +933,7 @@ def banded_phases(torch, build_rec, card):
     first_s = time.perf_counter() - t0
     cuda_kappa.LAUNCHES = 0
     cuda_spmv.LAUNCHES = 0
+    eigen.HOST_READS.update(blocking=0, flag_polls=0)
     torch.cuda.reset_peak_memory_stats()
     stats = {}
     torch.cuda.synchronize()
@@ -883,7 +942,22 @@ def banded_phases(torch, build_rec, card):
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     k1_launches, k5_launches = cuda_kappa.LAUNCHES, cuda_spmv.LAUNCHES
+    host_reads = dict(eigen.HOST_READS)
     peak = torch.cuda.max_memory_allocated()
+    # the same solve on the device loop (no host wait inside the iteration)
+    cuda_kappa.LAUNCHES = 0
+    eigen.HOST_READS.update(blocking=0, flag_polls=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    om_dev, _, steps_dev, _ = se.solve(p, BAND_GUESS, loop="device",
+                                       **BAND_KW)
+    torch.cuda.synchronize()
+    device_loop = {"seconds": time.perf_counter() - t0, "steps": steps_dev,
+                   "queued_steps": eigen.LAST_SOLVE["queued_steps"],
+                   "omega": [om_dev.real, om_dev.imag],
+                   "k1_launches": cuda_kappa.LAUNCHES,
+                   "host_reads": dict(eigen.HOST_READS),
+                   "rel_vs_host_loop": abs(om_dev - om) / abs(om)}
     chunks = sum(1 for _ in se.table_pair_chunks(grid, de_max, None, tiers,
                                                  se.FUSED_CHUNK))
     M = state.M
@@ -917,7 +991,22 @@ def banded_phases(torch, build_rec, card):
          spmv_nnz_per_s=stats["spmv_nnz_per_s"], nnz=M.nnz, h=stats["h"],
          k1_launches=k1_launches, k1_chunk=se.FUSED_CHUNK,
          k1_chunks_per_assembly=chunks, k5_launches=k5_launches,
+         host_reads=host_reads, device_loop=device_loop,
          residual=residual, peak_memory_bytes=peak, card=card)
+    check(device_loop["steps"] == n_steps
+          and device_loop["rel_vs_host_loop"] < 1e-6,
+          f"banded device loop vs host loop: {device_loop}, host steps "
+          f"{n_steps}")
+    check(device_loop["k1_launches"]
+          == chunks * (4 + device_loop["queued_steps"]),
+          f"device loop K1 launches {device_loop['k1_launches']} == {chunks} "
+          f"chunks x (4 + {device_loop['queued_steps']} queued steps)")
+    # one read for the Arnoldi stage's shift, one for the step count and
+    # omega; the host loop also reads the done flag every step
+    check(device_loop["host_reads"]["blocking"] == 2
+          and host_reads["blocking"] == n_steps + 2,
+          f"blocking reads: device loop {device_loop['host_reads']}, host "
+          f"loop {host_reads}")
     check(k5_launches == BAND_KW["m_krylov"] + 1 + se.SPMV_RATE_REPS,
           f"K5 launches {k5_launches} == {BAND_KW['m_krylov']} Arnoldi + "
           f"1 + {se.SPMV_RATE_REPS} rate chain")
@@ -1024,7 +1113,7 @@ def banded_phases(torch, build_rec, card):
              "r16": {k: k5_r16[k] for k in (
                  "kernel_ms", "plain_ms", "library_ms", "bound_ms",
                  "bound_by", "share_of_bound", "max_abs_err")}},
-            {"launches": k1_launches,
+            {"launches": k1_launches + device_loop["k1_launches"],
              "max_abs_err": max(r["max_abs_err"] for r in k1_rows)})
 
 
@@ -1076,6 +1165,7 @@ def dense_phases(torch, card, p, state):
     rel = abs(om - GOLDEN_TOK1024) / abs(GOLDEN_TOK1024)
     assemblies = 2 + did["queued_steps"] + did["polish_assemblies"]
     cert_launches = sum(by_ms.values())
+    cert_s = secs
     emit("dense_certify", case=f"tok{N_TOK} float32 dense host64 tol 1e-6",
          omega=[om.real, om.imag],
          golden=[GOLDEN_TOK1024.real, GOLDEN_TOK1024.imag], rel_err=rel,
@@ -1190,8 +1280,10 @@ def dense_phases(torch, card, p, state):
     check(loops["device"]["steps"] == loops["host"]["steps"],
           f"device and host loop steps: {loops}")
     check(d_loop < 1e-6, f"device vs host loop omega {d_loop:.3e} < 1e-6")
-    check(loops["device"]["host_reads"]["blocking"] == 2,
-          f"the device loop reads twice a solve: {loops['device']}")
+    check(loops["device"]["host_reads"]["blocking"] == 1,
+          f"the device loop reads once a solve: {loops['device']}")
+    check(loops["host"]["host_reads"]["blocking"] == loops["host"]["steps"] + 1,
+          f"the host loop reads once a step and once more: {loops['host']}")
     for v in loops.values():
         v["omega"] = [v["omega"].real, v["omega"].imag]
     M = state.M
@@ -1209,9 +1301,267 @@ def dense_phases(torch, card, p, state):
          null_vector={"correlation": corr, "residual": res,
                       "inverse_ms": inv_ms, "svd_ms": svd_ms}, card=card)
     return {"launches": cert_launches + stel_launches,
+            "certify_seconds": cert_s,
             "certify_launches": cert_launches, "stel_launches": stel_launches,
             "max_abs_err": max(r["max_abs_err"] for r in stel_rows),
             "stel_rows": stel_rows}
+
+
+def driver_phases(torch, card, slice_omega, certify_s):
+    """Phases 18-22 (the product surface): input files through
+    ``emme_tpu_torch.cli.main`` on the card.  Returns each kernel's launches
+    on these paths, by the names of the kernels line, and what they came
+    from."""
+    import numpy as np
+
+    from emme_tpu_torch import cli, from_config
+    from emme_tpu_torch.ops import cuda_kappa, cuda_spmv, sparse
+    from emme_tpu_torch.solvers import cuda_pic, eigen
+    from emme_tpu_torch.solvers import sparse_eigen as se
+    from emme_tpu_torch.utils.timer import Timer
+
+    f32 = torch.float32
+    golden = [GOLDEN_TOK1024.real, GOLDEN_TOK1024.imag]
+
+    def reset_counts():
+        cuda_kappa.LAUNCHES = 0
+        cuda_spmv.LAUNCHES = 0
+        for k in cuda_pic.LAUNCHES:
+            cuda_pic.LAUNCHES[k] = 0
+        # as in a fresh process: K3's once-per-process self-check runs again
+        cuda_pic._SELFCHECK.clear()
+
+    def counts():
+        return {"kappa_pairs": cuda_kappa.LAUNCHES,
+                "bsr_spmv": cuda_spmv.LAUNCHES, **cuda_pic.LAUNCHES}
+
+    def run_cli(tmp, name, cfg, *flags, runs=2):
+        """Write ``cfg`` as an input file and run it ``runs`` times through
+        the command line's entry point; the last run is timed and counted.
+        Returns (output.json, output directory, seconds, first run's
+        seconds, launches)."""
+        path = tmp / f"{name}.json"
+        path.write_text(json.dumps(cfg, indent=1))
+        out = tmp / name
+        secs = []
+        for _ in range(runs):
+            reset_counts()
+            Timer.get_timer().reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main([str(path), "-o", str(out), "-q", *flags])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            check(rc == 0, f"cli.main returned {rc}")
+        doc = json.loads((out / "output.json").read_text())
+        check(doc["framework"] == "emme_tpu_torch" and doc["input"] == cfg,
+              "output.json names the port and carries the input")
+        check(not (out / "checkpoint.json").exists(),
+              "the checkpoint is gone after a clean run")
+        return doc, out, secs[-1], secs[0], counts()
+
+    def single(doc):
+        return doc["result"]["(None)"]["scan_result"][0]
+
+    launches = {k: 0 for k in counts()}
+    sources = {k: [] for k in launches}
+
+    def credit(name, got, phase):
+        launches[name] += got[name]
+        sources[name].append(f"{phase} ({got[name]})")
+
+    with tempfile.TemporaryDirectory(prefix="emme_smoke_") as tmp:
+        tmp = pathlib.Path(tmp)
+
+        # 18. driver_eigen
+        cfg = load_cfg("tokamak", N_TOK)
+        doc, out, secs, first_s, got = run_cli(
+            tmp, "driver_eigen", cfg, "--f32", "--host64", "--chunk", "16384")
+        res = single(doc)
+        om = complex(*res["eigenvalue"])
+        rel = abs(om - GOLDEN_TOK1024) / abs(GOLDEN_TOK1024)
+        dump = out / "eigenMatrics" / "eigenMatrix.bin"
+        emit("driver_eigen", case=f"cli tok{N_TOK} --f32 --host64 --chunk "
+             "16384", omega=res["eigenvalue"], golden=golden, rel_err=rel,
+             steps=res["iteration_steps"], seconds=secs,
+             first_run_seconds=first_s, direct_call_seconds=certify_s,
+             driver_overhead_seconds=secs - certify_s,
+             timer_sections=Timer.get_timer().timings(),
+             quadrature_guard=res["quadrature_guard"], launches=got,
+             loop=eigen.LAST_SOLVE["loop"], dump_bytes=dump.stat().st_size,
+             card=card)
+        check(rel < CERTIFY_BAR, f"driver omega rel err {rel:.3e} < "
+                                 f"{CERTIFY_BAR}")
+        check(len(res["eigenvector"]) == N_TOK, "eigenvector of 1024 entries")
+        check(dump.stat().st_size == N_TOK * N_TOK * 16,
+              "eigenMatrix.bin holds 1024^2 complex128 values")
+        check(res["quadrature_guard"]["n_sampled"] == 4096
+              and math.isfinite(res["quadrature_guard"]["max_abs_err"]),
+              f"the quadrature guard ran: {res['quadrature_guard']}")
+        check(got["kappa_pairs"] > 0 and eigen.LAST_SOLVE["loop"] == "device",
+              f"the driver's solve went through K1 on the device loop: {got}")
+        credit("kappa_pairs", got, "driver_eigen")
+
+        # 19. driver_pic
+        pic_cfg = dict(cfg, method="PIC", marker_per_cell=PIC_MPC,
+                       step_number=PIC_STEPS, time_step=PIC_DT,
+                       pic_backend="fused", stream_fields=False)
+        doc, out, secs, first_s, got = run_cli(tmp, "driver_pic", pic_cfg,
+                                               "--f32")
+        res = single(doc)
+        om = complex(*res["eigenvalue"])
+        d_om = abs(om.real - GOLDEN_PIC.real) / abs(GOLDEN_PIC.real)
+        d_gam = abs(om.imag - GOLDEN_PIC.imag) / abs(GOLDEN_PIC.imag)
+        check(cuda_pic.LAST_LAUNCH == "single"
+              and got["pic_mega"] == 1 and got["grid_sync_probe"] >= 1
+              and got["pic_stage"] == 0,
+              f"the canonical run from an input file launched K3 once, "
+              f"after K4: {got}")
+        check(d_om < 0.05 and d_gam < 0.10,
+              f"fit {om} within 5 % / 10 % of golden pic_tok1024 "
+              f"{GOLDEN_PIC}")
+        check(len(res["eigenvector"]) == N_TOK
+              and all(math.isfinite(v) for pair in res["eigenvector"]
+                      for v in pair), "final field: 1024 finite entries")
+        check(not (out / "eigenMatrics" / "eigenMatrix.bin").exists(),
+              "'fused' writes no field dump")
+        for k in ("pic_mega", "grid_sync_probe"):
+            credit(k, got, "driver_pic")
+        doc8, _, secs8, _, got8 = run_cli(
+            tmp, "driver_pic_stages",
+            dict(pic_cfg, step_number=8, pic_launch="stages"), "--f32",
+            runs=1)
+        check(cuda_pic.LAST_LAUNCH == "stages" and got8["pic_stage"] == 24
+              and got8["pic_field"] == 24 and got8["pic_mega"] == 0,
+              f"pic_launch 'stages', 8 steps: 24 + 24 launches of K2: {got8}")
+        for k in ("pic_stage", "pic_field"):
+            credit(k, got8, "driver_pic stages")
+        stream_cfg = {k: v for k, v in pic_cfg.items()
+                      if k not in ("pic_backend", "stream_fields")}
+        _, out16, secs16, _, got16 = run_cli(
+            tmp, "driver_pic_stream", dict(stream_cfg, step_number=16),
+            "--f32", runs=1)
+        hist = np.fromfile(out16 / "eigenMatrics" / "eigenMatrix.bin",
+                           dtype=np.complex128)
+        check(hist.shape == (16 * N_TOK,) and bool(np.isfinite(hist).all())
+              and sum(got16.values()) == 0,
+              f"the streaming path dumps 16 x 1024 finite fields and takes "
+              f"the plain path: {hist.shape}, {got16}")
+        emit("driver_pic", case="cli tok1024 x 1024 markers/cell, 180 steps, "
+             "dt 0.25, --f32, pic_backend fused, stream_fields false",
+             omega=res["eigenvalue"],
+             golden=[GOLDEN_PIC.real, GOLDEN_PIC.imag],
+             rel_err=[d_om, d_gam], seconds=secs, first_run_seconds=first_s,
+             path="single", launches=got,
+             stages={"steps": 8, "seconds": secs8, "launches": got8,
+                     "omega": single(doc8)["eigenvalue"]},
+             streaming={"steps": 16, "seconds": secs16,
+                        "dump_values": int(hist.shape[0])}, card=card)
+
+        # 20. driver_scan
+        scan_cfg = dict(cfg, eta_i={"head": 3.0, "step": 0.25, "tail": 3.5})
+        doc, out, secs, first_s, got = run_cli(
+            tmp, "driver_scan", scan_cfg, "--f32", "--chunk", "16384")
+        unit = doc["result"]["eta_i"]
+        check(unit["scan_values"] == [3.0, 3.25, 3.5], "walk order")
+        seed = complex(*cfg["initial_guess"])
+        points = []
+        for value, res in zip(unit["scan_values"], unit["scan_result"]):
+            om = complex(*res["eigenvalue"])
+            p_i = from_config(dict(cfg, eta_i=value), dtype=f32)
+            direct, _, n_direct, _ = eigen.solve(
+                p_i, seed, tol=cfg["iteration_precision"], chunk=16384)
+            rel = abs(om - direct) / abs(direct)
+            check(rel < 2e-5, f"scan point eta_i={value}: {om} vs direct "
+                              f"solve {direct}, {rel:.3e} < 2e-5")
+            check((out / "eigenMatrics"
+                   / f"eta_iEq{value:.6f}.bin").stat().st_size
+                  == N_TOK * N_TOK * 16, "every point has its dump")
+            points.append({"eta_i": value, "omega": res["eigenvalue"],
+                           "steps": res["iteration_steps"],
+                           "direct_steps": n_direct, "rel_vs_direct": rel,
+                           "guard_flagged":
+                           res["quadrature_guard"]["frac_flagged"]})
+            seed = om
+        steps = [pt["steps"] for pt in points]
+        credit("kappa_pairs", got, "driver_scan")
+        gold = json.loads((REPO / "tests" / "goldens"
+                           / "scan_eta_i_tok32.json").read_text())
+        doc32, _, secs32, _, _ = run_cli(
+            tmp, "driver_scan32", dict(scan_cfg, npoints=32), runs=1)
+        unit32 = doc32["result"]["eta_i"]
+        check(unit32["scan_values"] == gold["scan_values"], "tok32 walk order")
+        rel32 = [abs(complex(*r["eigenvalue"]) - complex(*g)) / abs(complex(*g))
+                 for r, g in zip(unit32["scan_result"], gold["eigenvalues"])]
+        check(max(rel32) < 2e-5, f"tok32 float64 scan on the card vs the "
+                                 f"reference's scan: {rel32} < 2e-5")
+        emit("driver_scan", case=f"cli tok{N_TOK} --f32, eta_i 3.0 / 0.25 / "
+             "3.5", points=points, seconds=secs, first_run_seconds=first_s,
+             seconds_per_point=secs / len(points), launches=got,
+             continuation_takes_no_more_steps=max(steps[1:]) <= steps[0],
+             tok32_float64={"seconds": secs32, "rel_vs_reference_scan": rel32,
+                            "steps": [r["iteration_steps"]
+                                      for r in unit32["scan_result"]]},
+             card=card)
+
+        # 21. driver_sparse
+        sp_cfg = dict(cfg, eigen_backend="sparse", band_deta=20.0,
+                      m_krylov=16, spmv_method="bsr")
+        doc, out, secs, first_s, got = run_cli(
+            tmp, "driver_sparse", sp_cfg, "--f32", "--host64")
+        res = single(doc)
+        om = complex(*res["eigenvalue"])
+        rel = abs(om - GOLDEN_TOK1024) / abs(GOLDEN_TOK1024)
+        stats = res["sparse_stats"]
+        op = sparse.load_bdia_dump(out / "eigenMatrics" / "eigenMatrix.bin")
+        emit("driver_sparse", case=f"cli tok{N_TOK} sparse band_deta 20 "
+             "m_krylov 16 spmv bsr --f32 --host64", omega=res["eigenvalue"],
+             golden=golden, rel_err=rel, steps=res["iteration_steps"],
+             seconds=secs, first_run_seconds=first_s, sparse_stats=stats,
+             quadrature_guard=res["quadrature_guard"], launches=got,
+             card=card)
+        check(rel < CERT_BAR, f"driver sparse omega rel err {rel:.3e} < "
+                              f"{CERT_BAR}")
+        check(stats["spmv_route"] == "bsr" and got["bsr_spmv"]
+              == sp_cfg["m_krylov"] + 1 + se.SPMV_RATE_REPS,
+              f"K5 launches {got['bsr_spmv']} == 16 Arnoldi + 1 + "
+              f"{se.SPMV_RATE_REPS} rate chain, route {stats['spmv_route']}")
+        check(0 < got["kappa_pairs"] < 200,
+              f"the banded assemblies went through K1 in table-sized calls, "
+              f"not --chunk-sized ones: {got['kappa_pairs']} launches")
+        check(op.data.is_cuda and (op.n, op.block) == (N_TOK, stats["block"])
+              and op.nnz == stats["nnz"]
+              and bool(torch.isfinite(op.data).all()),
+              "the banded dump reads back through load_bdia_dump")
+        credit("kappa_pairs", got, "driver_sparse")
+        credit("bsr_spmv", got, "driver_sparse")
+        del op
+
+    # 22. eigen_timed
+    p = from_config(load_cfg("tokamak", N_TOK), dtype=f32)
+    sections = (" - linear solve", " - integration", " - differential")
+    timer = Timer.get_timer()
+    for _ in range(2):
+        timer.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        om, _, n_steps, _ = eigen.solve(p, GUESS, tol=1e-5, chunk=16384,
+                                        timed=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    per_step = {name.strip(" -"): timer.timings()[name] / n_steps
+                for name in sections}
+    rel = abs(om - slice_omega) / abs(slice_omega)
+    emit("eigen_timed", case=f"tok{N_TOK} float32 dense TraceSecant timed",
+         omega=[om.real, om.imag], rel_vs_slice=rel, steps=n_steps,
+         seconds=secs, seconds_per_step=per_step,
+         sections_share_of_solve=sum(timer.timings()[s] for s in sections)
+         / secs, loop=eigen.LAST_SOLVE["loop"], card=card)
+    check(rel < 1e-6, f"timed solve vs phase slice {rel:.3e} < 1e-6")
+    check(timer.entries == list(sections) and all(v > 0 for v in
+                                                  per_step.values()),
+          f"the three sections were timed: {timer.timings()}")
+    return launches, {k: " + ".join(v) for k, v in sources.items()}
 
 
 def main():
@@ -1262,7 +1612,7 @@ def main():
     for t, (iu, ju, spec) in enumerate(groups):
         quad = kernels.scaled_quad(None, f32, spec)
         r = compare(p, grid.eta[iu], grid.eta[ju], omega, (0,), quad, ES_BAR,
-                    torch, cuda_kappa)
+                    torch, cuda_kappa, hold_to_f64=(t == 0))
         rows.append(r)
         emit("kernel_vs_plain", case=f"tok{N_TOK}", tier=t, ms_moments=[0], **r)
     ps = from_config(load_cfg("stellarator", N_STEL), dtype=f32)
@@ -1298,6 +1648,8 @@ def main():
     residual = float(torch.linalg.vector_norm(M @ vec)
                      / torch.linalg.matrix_norm(M))
     check(did["loop"] == "device", "the card's default is the device loop")
+    check(reads["blocking"] == 1,
+          f"the device loop reads the host once a solve: {reads}")
     check(launches == len(groups) * (2 + did["queued_steps"]),
           f"K1 launches {launches} == {len(groups)} tiers x (2 + "
           f"{did['queued_steps']} queued steps)")
@@ -1331,6 +1683,8 @@ def main():
     del state, M
     pic_kernels = pic_phases(torch, builds["pic"], card)
     k5, k1_banded = banded_phases(torch, builds["spmv"], card)
+    drv_launches, drv_from = driver_phases(torch, card, om,
+                                           k1_dense["certify_seconds"])
 
     k1_bound = bound(sum(r["bytes"] for r in rows),
                      sum(r["flop"] for r in rows))
@@ -1362,6 +1716,16 @@ def main():
         "stel_bound_ms": k1_stel_bound["bound_ms"],
         "stel_ms_at": f"one stel{N_TOK} assembly, all tiers, three moments",
     }] + pic_kernels + [k5]}
+    # every kernel's launches on the driver's paths, from input files
+    field_launches = drv_launches.pop("pic_field")
+    for k in kernels_line["kernels"]:
+        n = drv_launches[k["name"]]
+        check(n > 0, f"{k['name']} was launched from an input file")
+        k["launches"] += n
+        k["launches_from"] += f" + cli: {drv_from[k['name']]}"
+        k["driver_launches"] = n
+    check(field_launches == drv_launches["pic_stage"],
+          "pic_field runs once a pic_stage")
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

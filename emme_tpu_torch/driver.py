@@ -1,0 +1,684 @@
+"""Parameter-scan driver: the port's equivalent of the reference's
+``main()`` (``src/main.cpp:182-338``).  Counterpart of
+``emme_tpu/driver.py``.
+
+Any top-level input value of the form ``{"head": h, "step": s, "tail": t}``
+(or ``"tail": [t_l, t_r]``) declares a scan dimension (main.cpp:225-242).
+The bidirectional scan generator walks head -> tail, then restarts toward the
+other tail (main.cpp:139-172), carrying eigenvalue continuation: each point
+seeds the next with its converged omega; on direction flip the omega re-seeds
+from the first result; failures record ``{"eigenvalue": "NaN", "reason"}``
+and the scan continues (main.cpp:262-324).
+
+Additions over the reference: checkpoint/resume of completed scan points, a
+selectable output directory and device, the timer's report, and a
+parallel scan mode (``scan_workers > 1``) that keeps the seeding rule of the
+JAX package's wavefront batches (see ``_run_scan_parallel``).
+
+Everything runs on the CUDA card unless the caller names another device
+(``device="cpu"``).  The multi-device paths of the JAX package's driver
+(``mesh=``, the ``"mesh"`` input key, ``mesh_rows``, ``mesh_scan``) and its
+sorted-window PIC path (``"pic_sorted"``) are not in the port: they raise.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import itertools
+import json
+import math
+import os
+import pathlib
+import threading
+import warnings
+
+import numpy as np
+import torch
+
+from . import params as params_mod
+from .grid import Grid
+from .ops import kernels
+from .ops.sparse import save_bdia_dump
+from .solvers import cuda_pic, eigen, pic, sparse_eigen
+from .utils import debug as debug_mod
+from .utils import provenance
+from .utils.timer import Timer, section
+
+_NO_MESH = ("the multi-device paths (mesh=, the \"mesh\" input key, "
+            "mesh_rows, mesh_scan) are not ported: they wait for the "
+            "multi-device layer, ROADMAP.md item 17")
+
+
+def _is_scan_spec(v) -> bool:
+    return isinstance(v, dict) and "head" in v and "step" in v and "tail" in v
+
+
+def scan_values(spec) -> tuple[list[float], list[bool]]:
+    """Materialize the reference's bidirectional scan walk
+    (main.cpp:139-172, 225-242).  Returns (values, turning_flags)."""
+    head = float(spec["head"])
+    step = float(spec["step"])
+    tail = spec["tail"]
+    if isinstance(tail, list):
+        left_tail, right_tail = float(tail[0]), float(tail[1])
+    else:
+        left_tail = float(tail)
+        right_tail = head + 0.5 * math.copysign(step, head - left_tail)
+
+    values, turning = [], []
+
+    def within(cur, cur_tail):
+        # the reference's 0.01*|step| slack absorbs float error (main.cpp:151)
+        return abs(cur - head) <= abs(cur_tail - head) + 0.01 * abs(step)
+
+    cur, cur_tail = head, left_tail
+    first = True
+    flipped = False
+    while True:
+        if not first:
+            cur += math.copysign(step, cur_tail - head)
+        first = False
+        if within(cur, cur_tail):
+            values.append(cur)
+            turning.append(False)
+        else:
+            if flipped:
+                break
+            flipped = True
+            cur_tail = right_tail
+            cur = head + math.copysign(step, cur_tail - head)
+            if not within(cur, cur_tail):
+                break
+            values.append(cur)
+            turning.append(True)
+    return values, turning
+
+
+def filter_input(cfg: dict) -> dict:
+    """Replace scan specs by their head value (main.cpp:174-180)."""
+    out = dict(cfg)
+    for k, v in out.items():
+        if _is_scan_spec(v):
+            out[k] = v["head"]
+    return out
+
+
+def _typed_array(vec) -> list:
+    """Complex vector -> [[re, im], ...] matching the reference's typed-array
+    output extension (JsonParser.h:260-278)."""
+    v = vec.detach().cpu().numpy()
+    return [[float(x.real), float(x.imag)] for x in v]
+
+
+def solve_once_eigen(cfg: dict, omega_guess: complex, matrix_file=None,
+                     dtype=torch.float64, device=None, quad=None,
+                     chunk: int = 2048, host64: bool = False, mesh=None):
+    """One eigen-method solve (main.cpp:19-80).  Returns the single-result
+    object and the converged omega for continuation.
+
+    Config surface beyond the reference: ``eigen_backend`` ('dense' |
+    'sparse', the never-dense block-banded solve), ``iteration_method``,
+    ``quad_tiered``, ``fused_assembly`` (kernel integrals through the CUDA
+    kernel K1; default on for float32), ``eigen_timers`` (the dense loop's
+    per-phase sections), ``band_deta``, ``band_block``, ``m_krylov``,
+    ``spmv_method`` ('bdia' | 'bsr', the CUDA kernel K5), ``quad_guard``
+    ('warn' | 'refine' | 'off').  ``device=None`` is the CUDA card."""
+    if mesh is not None:
+        raise NotImplementedError(_NO_MESH)
+    p = params_mod.from_config(cfg, dtype=dtype, device=device)
+    tol = float(cfg.get("iteration_precision", 1e-6))
+
+    backend = cfg.get("eigen_backend", "dense")
+    method = cfg.get("iteration_method", "TraceSecant")
+    stats: dict = {}
+    with section("Iteration"):
+        if backend == "sparse":
+            # block-banded end-to-end path: the dense operator never exists.
+            # ``chunk`` sizes the torch integrand's pair chunks; through K1
+            # the kernel table keeps its own call size (2M pairs): with
+            # 2,048 pairs a call a tok1024 solve made 2,568 launches and
+            # took 6.8 s instead of 0.3 s on an H100
+            fused = cfg.get("fused_assembly")
+            if fused is None:
+                fused = dtype == torch.float32
+            omega, vec, n_steps, state = sparse_eigen.solve(
+                p, omega_guess, tol=tol, quad=quad,
+                chunk=None if fused else chunk, host64=host64,
+                band_deta=cfg.get("band_deta"),
+                block=cfg.get("band_block"),
+                m_krylov=int(cfg.get("m_krylov", 0)),
+                method=method,
+                tiered=cfg.get("quad_tiered"),
+                spmv=cfg.get("spmv_method"),
+                fused=fused,
+                stats=stats)
+        elif backend == "dense":
+            omega, vec, n_steps, state = eigen.solve(
+                p, omega_guess, tol=tol, quad=quad, chunk=chunk,
+                method=method, host64=host64,
+                tiered=cfg.get("quad_tiered"),
+                timed=bool(cfg.get("eigen_timers", False)),
+                fused=cfg.get("fused_assembly"))
+        else:
+            raise ValueError(
+                f"eigen_backend must be 'dense' or 'sparse', got {backend!r}")
+        M_dump = state.M
+    debug_mod.check_finite("omega", omega)
+    debug_mod.check_finite("eigenvector", vec)
+    debug_mod.check_finite("operator M(omega)", M_dump)
+
+    with section("Output"):
+        if matrix_file is not None:
+            if backend == "sparse":
+                # banded dump: the BDIA planes (the dense matrix never
+                # existed) + JSON sidecar; load_bdia_dump reads it back
+                save_bdia_dump(M_dump, matrix_file)
+            else:
+                M_dump.cpu().numpy().astype(np.complex128).tofile(matrix_file)
+
+    # runtime quadrature-accuracy guard: check the static panel mesh against
+    # the reference's own adaptive acceptance criterion AT THE CONVERGED
+    # omega; warn -- or refine once on a denser mesh -- when an off-golden
+    # regime under-resolves.
+    guard_mode = cfg.get("quad_guard", "warn")
+    guard_stats = None
+    if guard_mode not in ("warn", "refine", "off"):
+        raise ValueError(
+            f"quad_guard must be 'warn', 'refine' or 'off', got {guard_mode!r}")
+    if guard_mode != "off":
+        grid = Grid.create(p.length, p.npoints, dtype=dtype, device=p.device)
+        # guard with the SAME tier meshes assembly used (a tiered f32 run
+        # evaluates far pairs on 2-4x coarser meshes; guarding only the base
+        # mesh would miss their under-resolution) and, on the sparse
+        # backend, only the kept band (pairs beyond it are never assembled)
+        tiered = cfg.get("quad_tiered")
+        if tiered is None:
+            tiered = dtype == torch.float32
+        tiers = None
+        if tiered:
+            dxf = 2.0 * float(p.length) / (p.npoints - 1)
+            tiers = kernels.tier_thresholds_ij(dxf, p.npoints)
+        max_dij = None
+        if backend == "sparse":
+            block, h = stats["block"], stats["h"]
+            max_dij = sparse_eigen.em_de_max(p.npoints, h, block) \
+                if p.electromagnetic else (h + 1) * block - 1
+        guard_stats = eigen.quadrature_guard(p, grid, omega, quad=quad,
+                                             chunk=chunk, tiers=tiers,
+                                             max_dij=max_dij)
+        if guard_stats["frac_flagged"] > 0:
+            msg = (f"quadrature guard: {guard_stats['frac_flagged']:.1%} of "
+                   f"sampled kernel integrals fail the reference acceptance "
+                   f"test at omega={omega:.6g} (max_abs_err="
+                   f"{guard_stats['max_abs_err']:.3g})")
+            if guard_mode == "refine":
+                quad2 = eigen.refine_quad(quad, dtype)
+                warnings.warn(msg + " -- re-solving on a 2x denser mesh")
+                cfg2 = dict(cfg, quad_guard="off")
+                res2, omega2 = solve_once_eigen(
+                    cfg2, omega, matrix_file=matrix_file, dtype=dtype,
+                    device=device, quad=quad2, chunk=chunk, host64=host64)
+                res2["quadrature_guard"] = dict(guard_stats, refined=True)
+                res2["eigenvalue_coarse_mesh"] = [omega.real, omega.imag]
+                return res2, omega2
+            warnings.warn(msg)
+
+    result = {
+        "eigenvalue": [omega.real, omega.imag],
+        "eigenvector": _typed_array(vec),
+        "iteration_steps": n_steps,
+    }
+    if guard_stats is not None:
+        result["quadrature_guard"] = guard_stats
+    if stats:
+        result["sparse_stats"] = {
+            k: (v if not isinstance(v, complex) else [v.real, v.imag])
+            for k, v in stats.items()}
+    return result, omega
+
+
+def solve_once_pic(cfg: dict, omega_guess: complex, matrix_file=None,
+                   dtype=torch.float64, device=None, seed: int = 0,
+                   mesh=None, **_):
+    """One PIC-method solve (main.cpp:82-137).
+
+    Config surface beyond the reference: ``pic_backend`` ('auto' | 'fused' |
+    'xla': the fused CUDA marker kernels of ``solvers/cuda_pic.py`` against
+    the plain PyTorch path, which keeps its input-schema name 'xla';
+    'fused' needs float32, npoints % 128 == 0, markers % 1024 == 0 and
+    npoints <= ``cuda_pic.MAX_NF``), ``pic_precision`` (accepted for the
+    schema; every value is exact float32 on the card), ``pic_launch``
+    ('auto' | 'single' | 'stages': the whole time loop as ONE cooperative
+    launch of kernel K3 against one launch of K2 per RK stage),
+    ``gather_method`` ('take'), ``deposit_method`` ('segment'),
+    ``pic_timers`` (per-phase Particle Pushing / Field Solve / Diagnostics
+    sections), ``time_step_adaptive`` (embedded-error step control, the
+    reference Integrator's step_adaptive that its main() never wires up),
+    ``stream_fields`` / ``stream_chunk_steps`` (the field dump appended
+    during the run; default on when a dump is asked for), ``omega_fit``
+    ('peak' | 'peak_views' | 'fft').
+
+    'auto' takes the fused kernels on a CUDA device when the shapes allow
+    and no field dump is asked for: it never drops the dump silently, while
+    an explicit 'fused' trades the dump for speed.  ``seed`` seeds the
+    marker loading's ``torch.Generator`` on the device."""
+    if mesh is not None:
+        raise NotImplementedError(_NO_MESH)
+    if cfg.get("pic_sorted"):
+        raise ValueError(
+            "pic_sorted: the sorted-window marker path is a TPU form that "
+            "the port does not have; drop the key (the fused kernels of "
+            "pic_backend='fused' need no sorting)")
+    p = params_mod.from_config(cfg, dtype=dtype, device=device)
+    mpc = int(cfg["marker_per_cell"])
+    nt = int(cfg["step_number"])
+    dt = float(cfg["time_step"])
+
+    fits = {"peak": pic.calculate_omega,
+            "peak_views": lambda s, dt: pic.calculate_omega(s, dt,
+                                                            views=True),
+            "fft": pic.calculate_omega_fft}
+    fit_name = cfg.get("omega_fit", "peak")
+    if fit_name not in fits:
+        raise ValueError(
+            f"omega_fit must be one of {list(fits)}, got {fit_name!r}")
+
+    adaptive = bool(cfg.get("time_step_adaptive", False))
+    stream = bool(cfg.get("stream_fields", True)) and matrix_file is not None
+    gen = torch.Generator(device=p.device).manual_seed(seed)
+    times = None
+    fields = None
+    with section("PIC run"):
+        if adaptive:
+            times, stats, state = pic.run_adaptive(
+                p, mpc, nt * dt, dt, generator=gen,
+                upper_err_bound=float(cfg.get("adaptive_upper_err", 1e-7)),
+                lower_err_bound=float(cfg.get("adaptive_lower_err", 1e-10)))
+        elif cfg.get("pic_timers"):
+            stats, state, fields = pic.run_timed(
+                p, mpc, nt, dt, generator=gen,
+                record_fields=matrix_file is not None)
+        elif stream:
+            # per-step field history flushed DURING the run (parity with
+            # main.cpp:105-110: a killed run keeps the flushed steps)
+            stats, state = pic.run_streaming(
+                p, mpc, nt, dt, matrix_file, generator=gen,
+                chunk_steps=int(cfg.get("stream_chunk_steps", 16)),
+                gather_method=cfg.get("gather_method"),
+                deposit_method=cfg.get("deposit_method"))
+        else:
+            backend = cfg.get("pic_backend", "auto")
+            if backend not in ("auto", "fused", "xla"):
+                raise ValueError(f"pic_backend must be auto|fused|xla, "
+                                 f"got {backend!r}")
+            m = mpc * int(p.npoints)
+            fused_ok = (dtype == torch.float32
+                        and int(p.npoints) % 128 == 0 and m % 1024 == 0
+                        and int(p.npoints) <= cuda_pic.MAX_NF)
+            if backend == "fused" and not fused_ok:
+                raise ValueError(
+                    "pic_backend='fused' needs f32, npoints % 128 == 0, "
+                    "markers % 1024 == 0 and npoints <= "
+                    f"{cuda_pic.MAX_NF}")
+            # auto never drops the buffered field dump silently; explicit
+            # 'fused' trades the dump for speed (streaming runs keep the
+            # plain path either way)
+            use_fused = backend == "fused" or (
+                backend == "auto" and fused_ok and matrix_file is None
+                and p.device.type == "cuda")
+            if use_fused:
+                stats, state, fields = cuda_pic.run(
+                    p, mpc, nt, dt, generator=gen,
+                    precision=cfg.get("pic_precision", "default"),
+                    launch=cfg.get("pic_launch", "auto"))
+            else:
+                stats, state, fields = pic.run(
+                    p, mpc, nt, dt, generator=gen,
+                    record_fields=matrix_file is not None,
+                    gather_method=cfg.get("gather_method"),
+                    deposit_method=cfg.get("deposit_method"))
+    debug_mod.check_finite("PIC field", state.field)
+    debug_mod.check_finite("PIC field statistics", stats)
+
+    if matrix_file is not None and fields is not None:
+        debug_mod.check_finite("PIC field history", fields)
+        fields.cpu().numpy().astype(np.complex128).tofile(matrix_file)
+
+    # omega_fit: "peak" reproduces the reference's peak-count fit (unsigned
+    # frequency, solver_pic.h:514-527); "peak_views" its EMME_USE_VIEWS
+    # gamma time-weight convention (solver_pic.h:479-489); "fft" resolves
+    # the frequency sign.
+    if adaptive:
+        omega = pic.calculate_omega_nonuniform(times, stats)
+    else:
+        omega = fits[fit_name](stats, dt)
+    result = {
+        "eigenvalue": [omega.real, omega.imag],
+        "eigenvector": _typed_array(state.field),
+    }
+    if adaptive:
+        result["adaptive_steps"] = int(len(times))
+        result["adaptive_final_time"] = float(times[-1])
+    return result, omega_guess  # PIC does not update the continuation seed
+
+
+_SOLVERS = {"eigen": solve_once_eigen, "PIC": solve_once_pic}
+
+
+def _run_scan_parallel(solver, input_cfg, key, spec, guess, outdir, done,
+                       record_ckpt, scan_workers, verbose, solver_kw,
+                       mode: str = "wavefront"):
+    """Parallel scan: scan points fan out over ``scan_workers`` threads.
+
+    ``mode="wavefront"`` (default) KEEPS eigenvalue continuation -- the
+    reference scan's core semantic (main.cpp:263, 281-291): the walk order
+    is processed in batches of ``scan_workers`` points, every point in a
+    batch seeded from the last converged omega of the previous batch (on a
+    direction flip the seed resets to the first result, exactly like the
+    sequential walk).  The seed lags at most ``scan_workers`` points behind,
+    vs the sequential walk's one.
+
+    ``mode="independent"`` seeds every point from the user guess.
+
+    The workers share the one device and its stream, so they keep these
+    seeding rules, results in walk order, per-point fault capture and the
+    ordered checkpoint, and buy no time: the parallel speed-up of the JAX
+    package's form came from one device a worker."""
+    values, turnings = scan_values(spec)
+    cfg0 = filter_input(input_cfg)
+    lock = threading.Lock()
+
+    def solve_point(i, value, seed_omega):
+        ck = f"{key}={value!r}"
+        with lock:
+            if ck in done:
+                return i, value, done[ck]
+        cfg = dict(cfg0)
+        cfg[key] = value
+        mfile = outdir / "eigenMatrics" / f"{key}Eq{value:.6f}.bin"
+        try:
+            res, _ = solver(cfg, seed_omega, matrix_file=mfile, **solver_kw)
+            res["eigenMatrix"] = str(mfile)
+            res["scan_value"] = value
+        except Exception as e:  # scan-level fault tolerance
+            res = {"eigenvalue": "NaN", "reason": str(e)}
+        with lock:
+            done[ck] = res
+            snapshot = dict(done)  # shallow: completed entries are not mutated
+            seq = record_ckpt.next_seq()   # ordered WITH the snapshot
+            if verbose:
+                print(f"    {key}:{value}  ->  {res.get('eigenvalue')}")
+        # serialize OUTSIDE the lock: dumping full eigenvectors for every
+        # completed point is O(scan), and doing it under the global lock
+        # would serialize all workers on I/O
+        record_ckpt(snapshot, seq)
+        return i, value, res
+
+    results = []
+    with concurrent.futures.ThreadPoolExecutor(scan_workers) as ex:
+        if mode == "independent":
+            results = list(ex.map(
+                lambda iv: solve_point(iv[0], iv[1], guess),
+                enumerate(values)))
+        else:  # wavefront
+            omega = guess
+            i = 0
+            while i < len(values):
+                # a direction flip starts a new chain: reseed from the
+                # first result (main.cpp:281-291) and a fresh batch
+                batch = []
+                for j in range(i, min(i + scan_workers, len(values))):
+                    if turnings[j] and j > i:
+                        break
+                    batch.append(j)
+                if turnings[batch[0]]:
+                    first = results[0][2] if results else None
+                    if first and isinstance(first.get("eigenvalue"), list):
+                        omega = complex(*first["eigenvalue"])
+                    else:
+                        omega = guess
+                out = list(ex.map(
+                    lambda j, om=omega: solve_point(j, values[j], om),
+                    batch))
+                results.extend(out)
+                # continuation: seed the next batch from the last
+                # converged point of this one (NaN resets to the guess)
+                ev = out[-1][2].get("eigenvalue")
+                omega = complex(*ev) if isinstance(ev, list) else guess
+                i = batch[-1] + 1
+    results.sort(key=lambda r: r[0])
+    return {"scan_key": key,
+            "scan_values": [v for _, v, _ in results],
+            "scan_result": [r for _, _, r in results]}
+
+
+def run(input_cfg: dict | str | pathlib.Path, output_dir=".",
+        dtype=torch.float64, device=None, checkpoint: bool = True,
+        verbose: bool = True, quad=None, chunk: int = 2048,
+        host64: bool = False, scan_workers: int = 1,
+        scan_mode: str = "wavefront", mesh_rows: int | None = None,
+        mesh_scan: int | None = None, debug: bool = False) -> dict:
+    """Execute the full (possibly scanning) job; writes output.json and
+    binary matrix dumps under ``output_dir``; returns the result object.
+
+    ``device``: None is the CUDA card (and raises where there is none);
+    "cpu" runs every solve on the CPU.
+
+    ``scan_mode`` (with scan_workers > 1): "wavefront" keeps eigenvalue
+    continuation in batches of scan_workers; "independent" seeds every
+    point from the user guess.
+
+    ``"shifts": [[re, im], ...]`` (eigen method): multi-shift run -- every
+    shift seeds an independent solve (add ``"m_krylov"`` for a shift-invert
+    Arnoldi stage per shift on the sparse backend); results land under
+    result["shifts"] in shift order.
+
+    ``debug`` (or the input key ``"debug": true``): input validation before
+    any solve and finiteness checks of every result (``utils/debug.py``).
+
+    ``mesh_rows``, ``mesh_scan`` and the input key ``"mesh"`` belong to the
+    JAX package's multi-device layer and raise ``NotImplementedError``."""
+    if scan_mode not in ("wavefront", "independent"):
+        raise ValueError(f"scan_mode must be 'wavefront' or 'independent', "
+                         f"got {scan_mode!r}")
+    if not isinstance(input_cfg, dict):
+        with open(input_cfg) as f:
+            input_cfg = json.load(f)
+
+    debug = bool(debug or input_cfg.get("debug"))
+    if debug:
+        # the reference's EMME_DEBUG analogue: input dimension/positivity
+        # validation now, finiteness checks of every result later
+        debug_mod.validate_problem(
+            params_mod.from_config(filter_input(input_cfg), dtype=dtype,
+                                   device=device),
+            filter_input(input_cfg))
+
+    if mesh_rows is not None or mesh_scan is not None \
+            or input_cfg.get("mesh"):
+        raise NotImplementedError(_NO_MESH)
+
+    method = input_cfg.get("method")
+    if method not in _SOLVERS:
+        raise ValueError(f"Method '{method}' is not supported, yet.")
+    solver = _SOLVERS[method]
+
+    outdir = pathlib.Path(output_dir)
+    (outdir / "eigenMatrics").mkdir(parents=True, exist_ok=True)
+    ckpt_path = outdir / "checkpoint.json"
+
+    timer = Timer.get_timer()
+    timer.start_timing("All")
+
+    guess = complex(input_cfg["initial_guess"][0], input_cfg["initial_guess"][1]) \
+        if "initial_guess" in input_cfg else 0j
+
+    result = {
+        "input": input_cfg,
+        "git_commit_hash": provenance.git_commit_hash(),
+        "build_time": provenance.build_time(),
+        "run_time": provenance.date_string(),
+        "framework": "emme_tpu_torch",
+        "result": {},
+    }
+
+    done = {}
+    if checkpoint and ckpt_path.exists():
+        with open(ckpt_path) as f:
+            done = json.load(f)
+
+    scan_config = {k: v for k, v in input_cfg.items() if _is_scan_spec(v)}
+
+    ckpt_seq = itertools.count()
+    ckpt_written = [-1]
+    ckpt_write_lock = threading.Lock()
+
+    def record_ckpt(snapshot=None, seq=None):
+        if checkpoint:
+            data = done if snapshot is None else snapshot
+            # atomic replace: concurrent writers (scan_workers > 1) can't
+            # interleave partial JSON in the checkpoint file.  The O(scan)
+            # json.dump stays outside any lock; only the replace is ordered
+            # by ``seq`` (taken under the caller's lock with the snapshot)
+            # so a slow worker's OLDER snapshot can never overwrite a newer
+            # checkpoint -- that would drop completed entries and force
+            # their re-solve on resume
+            tmp = ckpt_path.with_suffix(f".tmp{threading.get_ident()}")
+            with open(tmp, "w") as f:
+                json.dump(data, f)
+            with ckpt_write_lock:
+                if seq is not None and seq <= ckpt_written[0]:
+                    os.remove(tmp)   # stale snapshot lost the race
+                    return
+                os.replace(tmp, ckpt_path)
+                if seq is not None:
+                    ckpt_written[0] = seq
+
+    record_ckpt.next_seq = lambda: next(ckpt_seq)
+
+    solver_kw = dict(dtype=dtype, device=device, quad=quad, chunk=chunk,
+                     host64=host64)
+    nan_checks_were_on = debug_mod.nan_checks_enabled()
+    if debug:
+        debug_mod.enable_nan_checks()
+    try:
+        shifts = input_cfg.get("shifts")
+        if shifts is not None:
+            # multi-shift eigensolve: every shift seeds its own solve.  Use
+            # "m_krylov" in the input for a shift-invert Arnoldi stage per
+            # shift (sparse backend).
+            if method != "eigen":
+                raise ValueError('"shifts" requires method "eigen"')
+            if scan_config:
+                raise ValueError('"shifts" and scan dimensions are mutually '
+                                 "exclusive (one batch axis per run)")
+            sigmas = [complex(s[0], s[1]) for s in shifts]
+            cfg0 = filter_input(input_cfg)
+            lock = threading.Lock()
+
+            def one_shift(item):
+                i, sig = item
+                ck = f"shift={i}"
+                with lock:
+                    if ck in done:   # resume: shifts checkpoint like scan points
+                        return done[ck]
+                mfile = outdir / "eigenMatrics" / f"shift{i}.bin"
+                try:
+                    res, _ = solver(cfg0, sig, matrix_file=mfile, **solver_kw)
+                    res["eigenMatrix"] = str(mfile)
+                except Exception as e:  # per-shift fault tolerance
+                    res = {"eigenvalue": "NaN", "reason": str(e)}
+                res["shift"] = [sig.real, sig.imag]
+                with lock:
+                    done[ck] = res
+                    snapshot = dict(done)
+                    seq = record_ckpt.next_seq()   # ordered WITH the snapshot
+                    if verbose:
+                        print(f"    shift {sig}  ->  {res.get('eigenvalue')}")
+                record_ckpt(snapshot, seq)   # interrupted runs resume
+                return res
+
+            items = list(enumerate(sigmas))
+            if scan_workers > 1:
+                with concurrent.futures.ThreadPoolExecutor(scan_workers) as ex:
+                    out = list(ex.map(one_shift, items))
+            else:
+                out = [one_shift(it) for it in items]
+            result["result"]["shifts"] = {
+                "scan_key": "shifts",
+                "scan_values": [[s.real, s.imag] for s in sigmas],
+                "scan_result": out}
+        elif not scan_config:
+            unit = {"scan_key": "(None)", "scan_result": []}
+            mfile = outdir / "eigenMatrics" / "eigenMatrix.bin"
+            res, _ = solver(input_cfg, guess, matrix_file=mfile, **solver_kw)
+            unit["scan_result"].append(res)
+            result["result"]["(None)"] = unit
+        elif scan_workers > 1:
+            for key, spec in scan_config.items():
+                if verbose:
+                    print(f"\nScanning {key} ({scan_workers} workers on "
+                          "one device)")
+                result["result"][key] = _run_scan_parallel(
+                    solver, input_cfg, key, spec, guess, outdir, done,
+                    record_ckpt, scan_workers, verbose, solver_kw,
+                    mode=scan_mode)
+        else:
+            for key, spec in scan_config.items():
+                cfg = filter_input(input_cfg)
+                values, turnings = scan_values(spec)
+                unit = {"scan_key": key, "scan_values": [], "scan_result": []}
+                omega = guess
+                if verbose:
+                    print(f"\nScanning {key}")
+                for value, turning in zip(values, turnings):
+                    cfg[key] = value
+                    unit["scan_values"].append(value)
+                    if turning:
+                        first = unit["scan_result"][0] \
+                            if unit["scan_result"] else None
+                        if first and isinstance(first.get("eigenvalue"), list):
+                            omega = complex(*first["eigenvalue"])
+                        else:
+                            omega = guess
+                    if verbose:
+                        print(f"    {key}:{value}")
+                    ck = f"{key}={value!r}"
+                    mfile = outdir / "eigenMatrics" / f"{key}Eq{value:.6f}.bin"
+                    if ck in done:
+                        unit["scan_result"].append(done[ck])
+                        ev = done[ck].get("eigenvalue")
+                        if isinstance(ev, list):
+                            omega = complex(*ev)
+                        continue
+                    try:
+                        res, omega = solver(cfg, omega, matrix_file=mfile,
+                                            **solver_kw)
+                        res["eigenMatrix"] = str(mfile)
+                        res["scan_value"] = value
+                        if verbose:
+                            print(f"        eigenvalue: {res['eigenvalue']}")
+                    except Exception as e:  # scan-level fault tolerance
+                        res = {"eigenvalue": "NaN", "reason": str(e)}
+                        omega = guess
+                        if verbose:
+                            print(f"        {e}")
+                    unit["scan_result"].append(res)
+                    done[ck] = res
+                    record_ckpt()
+                result["result"][key] = unit
+    finally:
+        if debug and not nan_checks_were_on:
+            debug_mod.disable_nan_checks()
+
+    timer.start_timing("Output")
+    with open(outdir / "output.json", "w") as f:
+        json.dump(result, f, indent=1)
+    timer.pause_timing("Output")
+    timer.pause_timing("All")
+    if verbose:
+        print()
+        timer.print()
+    if checkpoint and ckpt_path.exists():
+        ckpt_path.unlink()  # completed cleanly
+    return result

@@ -20,14 +20,16 @@ Counterpart of the dense path of ``emme_tpu/solvers/eigen.py`` (reference
 
 One loop body (``_newton_loop``) keeps the convergence rules on device
 tensors; the host reads the done flag after every step (``loop="host"``) or
-one step late, with no wait inside the loop (``loop="device"``).
-``HOST_READS`` counts both kinds of host read.
+one step late, with no wait inside the loop (``loop="device"``).  It serves
+this module's dense states, the banded states of ``sparse_eigen.py`` and the
+timed loop (``solve(timed=True)``, whose step brackets its three phases with
+timer sections).  ``HOST_READS`` counts both kinds of host read.
 """
 
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import numpy as np
@@ -36,6 +38,7 @@ import torch
 from ..grid import Grid
 from ..ops import cuda_kappa, kernels, linalg
 from ..ops.singularity import singularity_coeff_matrix
+from ..utils.timer import section, sync
 
 
 def _pair_indices(n: int):
@@ -202,6 +205,28 @@ def newton_trace_step(p, grid, coeff, state: EigenState, quad=None,
     return EigenState(omega=omega, d_omega=d_omega, M=M_new, dM=dM)
 
 
+def newton_trace_step_timed(p, grid, coeff, state: EigenState, quad=None,
+                            chunk: int = 2048, tiers=None,
+                            fused: bool = False) -> EigenState:
+    """``newton_trace_step`` with the reference's per-phase timer sections
+    (" - linear solve" / " - integration" / " - differential",
+    solver.h:235-382).  On a card each section ends with a device
+    synchronize, so its seconds are the phase's and not its enqueue's: an
+    observability variant, slower than the plain step."""
+    with section(" - linear solve"):
+        d_omega = -1.0 / linalg.complex_solve_trace(state.M, state.dM)
+        sync(d_omega)
+    omega = state.omega + d_omega
+    with section(" - integration"):
+        M_new = assemble_matrix(p, grid, coeff, omega, quad, chunk, tiers,
+                                fused)
+        sync(M_new)
+    with section(" - differential"):
+        dM = (M_new - state.M) / d_omega
+        sync(dM)
+    return EigenState(omega=omega, d_omega=d_omega, M=M_new, dM=dM)
+
+
 def newton_qr_secant_step(p, grid, coeff, state: EigenState, quad=None,
                           chunk: int = 2048, tiers=None,
                           fused: bool = False) -> EigenState:
@@ -274,6 +299,16 @@ def _items(t):
     """A blocking read of a small 1-d tensor as a list, counted once."""
     HOST_READS["blocking"] += 1
     return t.tolist()
+
+
+def read_steps_omega(n_steps, omega):
+    """The loop's step count and omega in one blocking read: (int, complex).
+    Both go through float64, which holds a float32 omega and the count
+    exactly."""
+    n, re, im = _items(torch.stack([n_steps.to(torch.float64),
+                                    omega.real.to(torch.float64),
+                                    omega.imag.to(torch.float64)]))
+    return int(n), complex(re, im)
 
 
 def _sample_pairs(n: int, sample: int, seed: int, max_dij: int | None = None):
@@ -405,7 +440,8 @@ def refine_quad(quad, dtype, factor: int = 2) -> dict:
 
 def host64_polish(p, grid, coeff, state: EigenState, tol: float,
                   max_steps: int = 8, quad=None, chunk: int = 2048,
-                  tiers=None, fused: bool = False):
+                  tiers=None, fused: bool = False,
+                  omega: complex | None = None):
     """Hybrid-precision certification polish: assembly in the working
     precision (K1 for float32), linear algebra in complex128 on the same
     device.
@@ -434,8 +470,10 @@ def host64_polish(p, grid, coeff, state: EigenState, tol: float,
     ``emme_tpu``'s ``_host64_polish_full``, whose steps these are).  The
     dense twin of ``sparse_eigen.host64_polish_banded``.
 
-    Returns (omega, v, steps): a Python complex, v complex128 of unit norm
-    on the device, and the secant steps taken."""
+    ``omega``: ``state.omega`` as a Python complex where the caller has read
+    it already (``solve`` reads it with the step count); else it is read
+    here.  Returns (omega, v, steps): a Python complex, v complex128 of unit
+    norm on the device, and the secant steps taken."""
     dev = grid.eta.device
     cdtype = kernels.complex_dtype(grid.eta.dtype)
     c128 = torch.complex128
@@ -453,7 +491,8 @@ def host64_polish(p, grid, coeff, state: EigenState, tol: float,
         return v[:, 0]
 
     LAST_SOLVE["polish_assemblies"] = 0
-    omega = complex(_item(state.omega))
+    if omega is None:
+        omega = complex(_item(state.omega))
     A = state.M.to(c128)
     dA = state.dM.to(c128)
     v = null_vec(A)
@@ -487,8 +526,21 @@ def host64_polish(p, grid, coeff, state: EigenState, tol: float,
     return omega, v, steps
 
 
+def _select(keep, new, old):
+    """``new`` where the 0-d flag ``keep`` is set, else ``old``: for a
+    tensor, or for a block operator (``BDIAOperator``), whose ``data`` is
+    selected and whose structure is kept."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(keep, new, old)
+    return replace(new, data=torch.where(keep, new.data, old.data))
+
+
 def _newton_loop(step, state, tol, limit, f32, callback=None, lag=0):
-    """The Newton iteration: returns (state, n_steps).
+    """The Newton iteration: returns (state, n_steps), n_steps a 0-d int32
+    tensor on the state's device (``read_steps_omega`` reads it with omega).
+    ``state`` is any frozen dataclass with fields omega, d_omega (complex
+    0-d tensors), M and dM (tensors, or block operators with ``data``):
+    ``EigenState`` or ``sparse_eigen.SparseEigenState``.
 
     The convergence test |d_omega| < tol |omega|, the finiteness test, the
     stagnation counter and the keep-last-good-state rule are computed on
@@ -533,9 +585,9 @@ def _newton_loop(step, state, tol, limit, f32, callback=None, lag=0):
                                                torch.zeros_like(sc)), sc)
             finished = (finished & ok) | ~ok | (sc >= 2)
             keep = live & ok
-        state = EigenState(*(torch.where(keep, getattr(new, f),
-                                         getattr(state, f))
-                             for f in ("omega", "d_omega", "M", "dM")))
+        state = replace(state, **{f: _select(keep, getattr(new, f),
+                                             getattr(state, f))
+                                  for f in ("omega", "d_omega", "M", "dM")})
         d_prev = torch.where(keep, adw, d_prev)
         n_steps = n_steps + live.to(torch.int32)
         done = done | finished
@@ -554,14 +606,14 @@ def _newton_loop(step, state, tol, limit, f32, callback=None, lag=0):
             if flags[j - 1]:
                 break
     LAST_SOLVE["queued_steps"] = j + 1
-    return state, int(_item(n_steps))
+    return state, n_steps
 
 
 def solve(p, omega_init, tol: float | None = None, quad=None,
           chunk: int = 2048, callback=None, dtype=None,
           method: str = "TraceSecant", host64: bool = False,
           tiered: bool | None = None, fused: bool | None = None,
-          loop: str | None = None):
+          loop: str | None = None, timed: bool = False):
     """Full eigen solve: returns (omega, eigenvector, n_steps, state).
 
     ``omega`` is a Python complex; the eigenvector and ``state`` stay on
@@ -582,12 +634,20 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
     is the loop's.
 
     ``loop``: "device" runs the iteration with no host wait inside it,
-    "host" reads the done flag after every step (needed for ``callback``);
-    see ``_newton_loop``.  Both walk the same states.  Default: "device" on
-    a CUDA device when there is no callback, "host" on the CPU and for
-    "QRSecant": its pivoted-QR sweep is n host-driven column steps bound
-    by their launches, so the host has no wait to hide, and the device
-    loop's one masked step past convergence would cost a whole sweep.
+    "host" reads the done flag after every step (needed for ``callback``
+    and ``timed``); see ``_newton_loop``.  Both walk the same states, and
+    read the host once more after the loop (the step count and omega in one
+    read).  Default: "device" on a CUDA device when there is no callback
+    and no timing, "host" on the CPU and for "QRSecant": its pivoted-QR
+    sweep is n host-driven column steps bound by their launches, so the
+    host has no wait to hide, and the device loop's one masked step past
+    convergence would cost a whole sweep.
+
+    ``timed=True`` runs the observability loop: the host loop with
+    ``newton_trace_step_timed``, whose phases are bracketed by the
+    reference's per-iteration timer sections (" - linear solve" /
+    " - integration" / " - differential", solver.h:235-382) and ended by a
+    device synchronize; TraceSecant only.
 
     ``tiered``: coarser panel meshes for far |eta - eta'| pairs
     (kernels.TIER_TABLE).  Default: on for float32, off for float64 (the
@@ -604,13 +664,16 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
     if method not in _STEP_FNS:
         raise ValueError(f"method must be one of {sorted(_STEP_FNS)}, "
                          f"got {method!r}")
+    if timed and method != "TraceSecant":
+        raise ValueError(f"timed=True is TraceSecant only, got {method!r}")
     if loop is None:
         loop = "device" if (device.type == "cuda" and callback is None
-                            and method != "QRSecant") else "host"
+                            and not timed and method != "QRSecant") \
+            else "host"
     if loop not in ("host", "device"):
         raise ValueError(f"loop must be 'host' or 'device', got {loop!r}")
-    if loop == "device" and callback is not None:
-        raise ValueError("loop='device' is incompatible with callback")
+    if loop == "device" and (callback is not None or timed):
+        raise ValueError("loop='device' is incompatible with callback/timed")
     grid = Grid.create(p.length, p.npoints, dtype=dtype, device=device)
     coeff = singularity_coeff_matrix(p.npoints, dtype=dtype, device=device)
 
@@ -626,7 +689,9 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
         raise ValueError("fused=True is float32-only (the CUDA kernel K1)")
 
     kw = dict(quad=quad, chunk=chunk, tiers=tiers, fused=fused)
-    step = functools.partial(_STEP_FNS[method], p, grid, coeff, **kw)
+    step = functools.partial(
+        newton_trace_step_timed if timed else _STEP_FNS[method],
+        p, grid, coeff, **kw)
     f32 = dtype != torch.float64
     limit = p.iteration_step_limit + 1
     omega0 = torch.tensor(complex(omega_init), dtype=cdtype, device=device)
@@ -634,10 +699,11 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
     LAST_SOLVE.clear()
     state, n_steps = _newton_loop(step, state, tol, limit, f32, callback,
                                   lag=1 if loop == "device" else 0)
-    LAST_SOLVE.update(loop=loop, method=method, steps=n_steps)
+    n_steps, omega = read_steps_omega(n_steps, state.omega)
+    LAST_SOLVE.update(loop=loop, method=method, steps=n_steps, timed=timed)
     if host64:
-        omega, vec, extra = host64_polish(p, grid, coeff, state, tol, **kw)
+        omega, vec, extra = host64_polish(p, grid, coeff, state, tol,
+                                          omega=omega, **kw)
         LAST_SOLVE["polish_steps"] = extra
         return omega, vec, n_steps + extra, state
-    vec = null_space(state.M)
-    return complex(_item(state.omega)), vec, n_steps, state
+    return omega, null_space(state.M), n_steps, state

@@ -19,14 +19,17 @@ Behaviour kept from the reference (``include/solver_pic.h``):
     state (``convert.pic_state_from_arrays``) and golden comparisons are
     statistical in (omega, gamma).
 
+``run_streaming`` appends every step's field to a file during the run and
+``run_timed`` brackets the phases of a step with timer sections; both take
+this plain path, as the JAX package's do.
+
 Not ported: the sorted-window path and the one-hot matmul / bf16 CIC forms
-(TPU workarounds); ``run_jitted``, ``run_streaming`` and ``run_timed``,
-which need the transfer and timer helpers (``utils/transfer.py``,
-``utils/timer.py``) and come with the command-line entry point.
+(TPU workarounds), and ``run_jitted``, whose role ``run`` has here.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, replace
 from typing import Any
 
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from ..ops.bessel import bessel_i01_scaled, bessel_j0, bessel_j1
+from ..utils.timer import section, sync
 
 # Low-storage RK tableau (reference solver_pic.h:466-470).
 RK_COEF = np.array([
@@ -282,6 +286,82 @@ def run(p, marker_per_cell: int, n_steps: int, dt, generator=None,
         stats.append(field_stats(s.field))
         if record_fields:
             fields.append(s.field)
+    return (torch.stack(stats), s,
+            torch.stack(fields) if record_fields else None)
+
+
+def _fields_to_file(fields, f):
+    """Append (k, nf) complex fields to the open binary file ``f`` as raw
+    complex128, the layout of the buffered dump."""
+    torch.stack(fields).to(torch.complex128).cpu().numpy().tofile(f)
+
+
+def run_streaming(p, marker_per_cell: int, n_steps: int, dt, stream_path,
+                  generator=None, state: PICState | None = None,
+                  chunk_steps: int = 16, gather_method: str | None = None,
+                  deposit_method: str | None = None):
+    """``run`` with the per-step field dumps STREAMED to disk during the run
+    (the reference writes each step's field before the next one starts,
+    main.cpp:105-110, so a killed run keeps its field history; the buffered
+    ``run`` loses everything).
+
+    Every ``chunk_steps`` steps the fields of the segment go to the host and
+    are APPENDED to ``stream_path`` (complex128 raw, the layout of the
+    buffered dump), flushed and ``fsync``ed, which bounds the history a
+    killed run loses to ``chunk_steps`` steps.  The device waits for the
+    host once a segment, not once a step.
+
+    Returns (stats (n_steps, 3), final state)."""
+    s = initial_state(p, marker_per_cell, generator, state)
+    qn_coef = quasi_neutrality_coef(p, dtype=p.dtype)
+    stats, fields = [], []
+    with open(stream_path, "wb") as f:
+        for k in range(n_steps):
+            s, _v = rk3_step(p, s, dt, qn_coef, gather_method, deposit_method)
+            stats.append(field_stats(s.field))
+            fields.append(s.field)
+            if len(fields) == chunk_steps or k == n_steps - 1:
+                _fields_to_file(fields, f)
+                f.flush()
+                os.fsync(f.fileno())
+                fields = []
+    return torch.stack(stats), s
+
+
+def run_timed(p, marker_per_cell: int, n_steps: int, dt, generator=None,
+              state: PICState | None = None, record_fields: bool = False):
+    """Observability variant of ``run``: the step loop with the reference's
+    per-phase timer sections ("Initial", "Particle Pushing", "Field Solve",
+    "Diagnostics"; solver_pic.h:127-155).  On a card every section ends
+    with a device synchronize, so it is slower than ``run``: use it to see
+    the push / deposit / diagnose split.  Returns (stats, final state,
+    fields or None)."""
+    with section("Initial"):
+        s = initial_state(p, marker_per_cell, generator, state)
+        qn_coef = quasi_neutrality_coef(p, dtype=p.dtype)
+        sync(s.field)
+
+    stats, fields = [], []
+    for _ in range(n_steps):
+        v = []
+        for stage in range(3):
+            with section("Particle Pushing"):
+                v.append(put_velocity(p, s))
+                sub_dt = float(RK_COEF[stage][stage + 1]) * dt
+                eta = s.eta + s.v_para * sub_dt / (p.q * p.R)
+                eta = torch.remainder(eta + p.length, 2.0 * p.length) \
+                    - p.length
+                s = replace(s, eta=eta, weight=s.weight
+                            + _combo(RK_COEF[stage], v) * sub_dt)
+                sync(s.weight)
+            with section("Field Solve"):
+                s = solve_field(p, s, qn_coef)
+                sync(s.field)
+        with section("Diagnostics"):
+            stats.append(field_stats(s.field))
+            if record_fields:
+                fields.append(s.field)
+            sync(stats[-1])
     return (torch.stack(stats), s,
             torch.stack(fields) if record_fields else None)
 

@@ -21,8 +21,10 @@ a fraction of the dense operator.  The dense matrix never exists:
 * ``host64=True`` polishes with complex128 linear algebra on the same
   device (the JAX package's host scipy polish, moved onto the card).
 
-The iteration is driven from the host, one scalar read per step.  Peak
-memory is O(n * bandwidth).
+The iteration is the dense solver's loop body (``eigen._newton_loop``, one
+set of stop rules for both): driven from the host with one flag read a step
+(``loop="host"``, the default) or queued with no host wait inside it
+(``loop="device"``).  Peak memory is O(n * bandwidth).
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ from ..grid import Grid
 from ..ops import banded, cuda_kappa, kernels
 from ..ops.singularity import SINGULAR_BAND_HALF_WIDTH, singularity_coeff_band
 from ..ops.sparse import BDIAOperator, bdia_matvec, pick_spmv
+from ..utils.timer import sync
+from . import eigen
 from .arnoldi import arnoldi_factorization, ritz_from_hessenberg
 
 # Default banding cutoff |eta - eta'| <= band_deta (as emme_tpu: 20.0 keeps
@@ -420,7 +424,7 @@ def _to_c128(op: BDIAOperator) -> BDIAOperator:
 def host64_polish_banded(p, grid, coeff_band, state: SparseEigenState,
                          tol: float, h: int, block: int, max_steps: int = 8,
                          quad=None, chunk=None, tiers=None,
-                         fused: bool = False):
+                         fused: bool = False, omega: complex | None = None):
     """Certification polish: the assembly stays in the working precision
     (K1 for float32), the linear algebra runs in complex128 on the same
     device.  The bordered secant of ``emme_tpu``'s
@@ -432,8 +436,10 @@ def host64_polish_banded(p, grid, coeff_band, state: SparseEigenState,
     operators go to the host and scipy ``splu`` (which pivots rows)
     factors them; here the unpivoted banded LU of ``ops/banded.py``
     factors them on the device.  The start vector of the inverse
-    iteration is the same numpy ``default_rng(0)`` draw.  Returns
-    (omega, v, steps) with v complex128, unit norm, on the device."""
+    iteration is the same numpy ``default_rng(0)`` draw.  ``omega``:
+    ``state.omega`` as a Python complex where the caller has read it
+    already.  Returns (omega, v, steps) with v complex128, unit norm, on
+    the device."""
     dev = grid.eta.device
     cdtype = kernels.complex_dtype(grid.eta.dtype)
     n = state.M.n
@@ -444,15 +450,17 @@ def host64_polish_banded(p, grid, coeff_band, state: SparseEigenState,
     def null_vec(A):
         return _inverse_iteration(banded.banded_lu(A), v0, 3)
 
-    omega = complex(state.omega.item())
+    if omega is None:
+        omega = complex(eigen._item(state.omega))
     A = _to_c128(state.M)
     dA = _to_c128(state.dM)
     v = null_vec(A)
     refreshed = False
     steps = 0
     for _ in range(max_steps):
-        den = complex(_cdot_bilinear(v, bdia_matvec(dA, v)).item())
-        num = complex(_cdot_bilinear(v, bdia_matvec(A, v)).item())
+        den, num = eigen._items(torch.stack([
+            _cdot_bilinear(v, bdia_matvec(dA, v)),
+            _cdot_bilinear(v, bdia_matvec(A, v))]))
         d_omega = -num / den if den != 0 else complex(0.0)
         if not (np.isfinite(d_omega.real) and np.isfinite(d_omega.imag)):
             # already at the certification floor (0/0 secant): zero step,
@@ -482,24 +490,21 @@ def solve_shifts(p, sigmas, tol: float | None = None, m_krylov: int = 16,
     """Banded multi-shift eigensolve: for every shift run ``solve`` (the
     shift-invert Arnoldi stage + the banded Newton polish), in order on the
     parameters' device.  Returns a list of (omega, vector, steps) in sigma
-    order; a failed shift yields (nan, None, 0) after a warning naming the
-    shift and the exception."""
+    order; a shift that fails with any ``Exception`` (a ``KeyError`` from a
+    tier spec that ``kernels.scaled_quad`` does not know included) yields
+    (nan, None, 0) after a warning naming the shift and the exception, and
+    the sweep goes on, as in the JAX package."""
     out = []
     for sig in (complex(s) for s in np.asarray(sigmas)):
         try:
             om, vec, steps, _ = solve(p, sig, tol=tol, m_krylov=m_krylov,
                                       **kw)
             out.append((om, vec, steps))
-        except (RuntimeError, ValueError, FloatingPointError) as e:
+        except Exception as e:  # per-shift fault tolerance
             warnings.warn(f"solve_shifts: shift {sig} failed: "
                           f"{type(e).__name__}: {e}")
             out.append((complex(float("nan"), float("nan")), None, 0))
     return out
-
-
-def _sync(t):
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
 
 
 def spmv_rate(op: BDIAOperator, spmv: str | None = None,
@@ -514,12 +519,12 @@ def spmv_rate(op: BDIAOperator, spmv: str | None = None,
     ones = torch.ones(op.n, dtype=rdtype, device=op.data.device)
     x = torch.complex(ones, torch.zeros_like(ones))
     mv(x)
-    _sync(x)
+    sync(x)
     t0 = time.perf_counter()
     for _ in range(reps):
         y = mv(x)
         x = y / (torch.linalg.vector_norm(y) + 1e-30)
-    _sync(x)
+    sync(x)
     return op.nnz * reps / (time.perf_counter() - t0), route
 
 
@@ -543,7 +548,12 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
     Arnoldi stage first and re-seeds the Newton iteration from its Ritz
     value.  ``spmv``: "bdia" | "bsr" | None (auto, ``pick_spmv``) -- the
     route of the Arnoldi matvecs and of the SpMV-rate stat.  ``loop``:
-    only "host" (one scalar read per step); "device" is not ported yet.
+    "host" (default: the done flag is read after every step) or "device"
+    (no host wait inside the loop, the flag read one step late; it queues
+    one masked step, a whole banded assembly, past convergence); both walk
+    the same states (``eigen._newton_loop``).  Blocking host reads are
+    counted in ``eigen.HOST_READS`` and the loop's record is
+    ``eigen.LAST_SOLVE``.
     ``fused``: kernel tables through K1 (default on for float32; the plain
     version on CPU tensors).  ``tiered``: coarser panel meshes for far
     pairs (default on for float32).  The float32 loop also stops at its
@@ -556,10 +566,7 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
     band_deta = band_deta if band_deta is not None else DEFAULT_BAND_DETA
     if loop is None:
         loop = "host"
-    if loop == "device":
-        raise ValueError("loop='device' is not ported yet: it waits for "
-                         "the device loop of ROADMAP.md item 6")
-    if loop != "host":
+    if loop not in ("host", "device"):
         raise ValueError(f"loop must be 'host' or 'device', got {loop!r}")
     if method not in ("TraceSecant", "QRSecant"):
         raise ValueError(f"method must be 'TraceSecant' or 'QRSecant', "
@@ -587,7 +594,7 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
     kw = dict(h=h, block=block, quad=quad, chunk=chunk, tiers=tiers,
               fused=fused)
     step = partial(trace_newton_step if method == "TraceSecant"
-                   else bordered_newton_step, **kw)
+                   else bordered_newton_step, p, grid, coeff_band, **kw)
 
     def init(om):
         return init_state(p, grid, coeff_band,
@@ -595,13 +602,13 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
 
     state = init(complex(omega_init))
     if m_krylov:
-        _sync(state.omega)
+        sync(state.omega)
         t0 = time.perf_counter()
         _V, H = arnoldi_estimate(state, m_krylov, spmv)
-        _sync(H)
+        sync(H)
         t_arnoldi = time.perf_counter() - t0
-        omegas, _ = ritz_from_hessenberg(H, complex(state.omega.item()),
-                                         m_krylov)
+        omegas, _ = ritz_from_hessenberg(
+            H, complex(eigen._item(state.omega)), m_krylov)
         est = complex(omegas[0])
         if np.isfinite(est.real) and np.isfinite(est.imag):
             state = init(est)   # re-seed the Newton polish from the estimate
@@ -609,27 +616,12 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
             stats["arnoldi_s"] = t_arnoldi
             stats["arnoldi_omega"] = est
 
-    f32 = dtype != torch.float64
-    n_steps = 0
-    d_prev, sc = float("inf"), 0
-    for j in range(p.iteration_step_limit + 1):
-        prev = state
-        state = step(p, grid, coeff_band, state)
-        n_steps = j + 1
-        adw = abs(complex(state.d_omega.item()))
-        aw = abs(complex(state.omega.item()))
-        if f32 and not (np.isfinite(adw) and np.isfinite(aw)):
-            state = prev   # f32 floor blow-up: keep last good state
-            break
-        if adw < tol * aw:
-            break
-        if f32 and adw < 1e-3 * aw and adw > 0.8 * d_prev:
-            sc += 1
-            if sc >= 2:   # runtime rounding-floor detection
-                break
-        else:
-            sc = 0
-        d_prev = adw
+    eigen.LAST_SOLVE.clear()
+    state, n_steps = eigen._newton_loop(
+        step, state, tol, p.iteration_step_limit + 1,
+        dtype != torch.float64, lag=1 if loop == "device" else 0)
+    n_steps, omega = eigen.read_steps_omega(n_steps, state.omega)
+    eigen.LAST_SOLVE.update(loop=loop, method=method, steps=n_steps)
 
     if stats is not None:
         stats["nnz"] = state.M.nnz
@@ -643,7 +635,7 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
     if host64:
         omega, v, extra = host64_polish_banded(
             p, grid, coeff_band, state, tol, h, block, quad=quad, chunk=chunk,
-            tiers=tiers, fused=fused)
+            tiers=tiers, fused=fused, omega=omega)
         if p.electromagnetic:
             v = deinterleave(v)
         return omega, v, n_steps + extra, state
@@ -652,4 +644,4 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
                      state.M.data.dtype, iters=3)
     if p.electromagnetic:
         v = deinterleave(v)
-    return complex(state.omega.item()), v, n_steps, state
+    return omega, v, n_steps, state

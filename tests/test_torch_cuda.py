@@ -1,7 +1,9 @@
 """The CUDA kernels on an NVIDIA GPU against their plain PyTorch versions:
 K1 and the float32 solve through it; K2, K3 and K4 (the fused PIC marker
 pass) and the fused PIC run; K5 (the BSR SpMV) and the banded solve through
-it.  Every test here needs a card and skips without one.
+it; and the driver's three kernel routes from an input dict, each against
+the same driver call on CPU tensors.  Every test here needs a card and skips
+without one.
 
 This file imports torch, numpy and the port only, so it also runs on a
 machine with a card and without JAX (tests/conftest.py imports JAX):
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 import emme_tpu_torch as et
-from emme_tpu_torch import convert
+from emme_tpu_torch import convert, driver
 from emme_tpu_torch.grid import Grid
 from emme_tpu_torch.ops import (cuda_kappa, cuda_spmv, kernels, singularity,
                                 sparse)
@@ -416,7 +418,7 @@ def test_bsr_spmm_unaligned_and_large_blocks(card):
 def test_device_loop_matches_host_tok128(card):
     """eigen.solve at tok128 float32 on the card: loop="device" (the
     default there) returns the host loop's omega, step count and vector,
-    with two blocking host reads a solve against one a step and two."""
+    with one blocking host read a solve against one a step and one."""
     p = et.from_config(_cfg("tokamak", 128), dtype=torch.float32, device=card)
     out, reads = {}, {}
     for loop in ("host", "device", None):
@@ -432,8 +434,8 @@ def test_device_loop_matches_host_tok128(card):
         corr = torch.vdot(vec_h, vec_d).abs() / (
             torch.linalg.vector_norm(vec_h) * torch.linalg.vector_norm(vec_d))
         assert float(corr) > 1 - 1e-5
-        assert reads[loop]["blocking"] == 2
-    assert reads["host"]["blocking"] == n_h + 2
+        assert reads[loop]["blocking"] == 1
+    assert reads["host"]["blocking"] == n_h + 1
     # QRSecant's default stays the host loop: a masked step is a whole sweep
     eigen.solve(p, -0.8 + 0.25j, tol=1e-5, method="QRSecant")
     assert eigen.LAST_SOLVE["loop"] == "host"
@@ -477,3 +479,95 @@ def test_banded_solve_f32_tok128_through_kernels(card):
     assert stats["spmv_route"] == "bsr" and state.M.data.is_cuda
     assert vec.is_cuda and bool(torch.isfinite(vec).all())
     assert abs(om - GOLDEN_TOK128) / abs(GOLDEN_TOK128) < 1e-5
+
+
+def _driver_result(cfg, out_dir, device, **kw):
+    out = driver.run(cfg, output_dir=out_dir, device=device,
+                     dtype=torch.float32, verbose=False, **kw)
+    return out["result"]["(None)"]["scan_result"][0]
+
+
+@pytest.mark.cuda
+def test_driver_eigen_tok128_through_k1(card, tmp_path):
+    """driver.run on tokamak npoints 128 in float32: on the card every
+    assembly goes through K1 and the guard runs there; omega within 1e-5 of
+    golden tok128 and of the same call on CPU tensors (K1's plain version),
+    the same steps, the two dumps within 1e-5 of scale."""
+    cfg = _cfg("tokamak", 128)
+    before = cuda_kappa.LAUNCHES
+    on_card = _driver_result(cfg, tmp_path / "card", None, chunk=16384)
+    launched = cuda_kappa.LAUNCHES - before
+    on_cpu = _driver_result(cfg, tmp_path / "cpu", "cpu", chunk=16384)
+    assert launched > 0 and cuda_kappa.LAUNCHES - before == launched
+    om, om_c = (complex(*r["eigenvalue"]) for r in (on_card, on_cpu))
+    assert abs(om - GOLDEN_TOK128) / abs(GOLDEN_TOK128) < 1e-5
+    assert abs(om - om_c) / abs(om_c) < 1e-5
+    assert on_card["iteration_steps"] == on_cpu["iteration_steps"]
+    assert on_card["quadrature_guard"]["n_sampled"] \
+        == on_cpu["quadrature_guard"]["n_sampled"] == 4096
+    assert abs(on_card["quadrature_guard"]["frac_flagged"]
+               - on_cpu["quadrature_guard"]["frac_flagged"]) <= 0.01
+    dumps = [np.fromfile(tmp_path / d / "eigenMatrics" / "eigenMatrix.bin",
+                         dtype=np.complex128) for d in ("card", "cpu")]
+    assert dumps[0].shape == (128 * 128,)
+    assert np.abs(dumps[0] - dumps[1]).max() <= 1e-5 * np.abs(dumps[1]).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("launch,counts", [
+    ("single", {"pic_mega": 1, "pic_stage": 0, "pic_field": 0}),
+    ("stages", {"pic_mega": 0, "pic_stage": 12, "pic_field": 12})])
+def test_driver_pic_fused_routes(card, tmp_path, monkeypatch, launch, counts):
+    """driver.run with pic_backend 'fused' at npoints 128 (8 markers a
+    cell, 4 steps): pic_launch 'single' is one launch of K3, 'stages' 3 x 4
+    of K2; the final field within 2e-5 of scale of the same call on CPU
+    tensors (the kernels' plain versions) from the same markers."""
+    cfg = dict(_cfg("tokamak", 128), method="PIC", marker_per_cell=8,
+               step_number=4, time_step=0.25, stream_fields=False,
+               pic_backend="fused", pic_launch=launch)
+    p = et.from_config(cfg, dtype=torch.float32, device="cpu")
+    s0 = pic.init_state(p, 8, torch.Generator().manual_seed(0),
+                        dtype=torch.float32)
+
+    def same_markers(p, mpc, generator=None, state=None):
+        return pic.PICState(**{k: getattr(s0, k).to(p.device)
+                               for k in s0.__dataclass_fields__})
+
+    monkeypatch.setattr(pic, "initial_state", same_markers)
+    before = dict(cuda_pic.LAUNCHES)
+    on_card = _driver_result(cfg, tmp_path / "card", None)
+    got = {k: cuda_pic.LAUNCHES[k] - before[k] for k in counts}
+    assert got == counts and cuda_pic.LAST_LAUNCH == launch
+    on_cpu = _driver_result(cfg, tmp_path / "cpu", "cpu")
+    assert {k: cuda_pic.LAUNCHES[k] - before[k] for k in counts} == counts
+    fa, fb = (np.asarray(r["eigenvector"]) for r in (on_card, on_cpu))
+    assert fa.shape == (128, 2) and np.isfinite(fa).all()
+    assert np.abs(fa - fb).max() <= 2e-5 * np.abs(fb).max()
+    assert np.isfinite(on_card["eigenvalue"]).all()
+
+
+@pytest.mark.cuda
+def test_driver_sparse_tok128_through_k5(card, tmp_path):
+    """driver.run with eigen_backend 'sparse', m_krylov 8 and spmv_method
+    'bsr' at tok128 float32: K5 carries the Arnoldi matvecs and the rate
+    chain (8 + 1 + 50 launches), K1 the kernel tables; omega within 1e-5 of
+    golden tok128 and of the same call on CPU tensors; the banded dump
+    reads back."""
+    cfg = dict(_cfg("tokamak", 128), eigen_backend="sparse", m_krylov=8,
+               spmv_method="bsr", iteration_precision=1e-5)
+    k1, k5 = cuda_kappa.LAUNCHES, cuda_spmv.LAUNCHES
+    on_card = _driver_result(cfg, tmp_path / "card", None)
+    assert cuda_spmv.LAUNCHES - k5 == 8 + 1 + sparse_eigen.SPMV_RATE_REPS
+    assert cuda_kappa.LAUNCHES > k1
+    k1, k5 = cuda_kappa.LAUNCHES, cuda_spmv.LAUNCHES
+    on_cpu = _driver_result(cfg, tmp_path / "cpu", "cpu")
+    assert (cuda_kappa.LAUNCHES, cuda_spmv.LAUNCHES) == (k1, k5)
+    om, om_c = (complex(*r["eigenvalue"]) for r in (on_card, on_cpu))
+    assert abs(om - GOLDEN_TOK128) / abs(GOLDEN_TOK128) < 1e-5
+    assert abs(om - om_c) / abs(om_c) < 1e-5
+    assert on_card["sparse_stats"]["spmv_route"] == "bsr"
+    assert on_card["sparse_stats"]["nnz"] == on_cpu["sparse_stats"]["nnz"]
+    op = sparse.load_bdia_dump(tmp_path / "card" / "eigenMatrics"
+                               / "eigenMatrix.bin")
+    assert op.data.is_cuda and op.n == 128
+    assert op.nnz == on_card["sparse_stats"]["nnz"]

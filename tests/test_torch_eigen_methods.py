@@ -20,6 +20,7 @@ import emme_tpu_torch as et
 from emme_tpu_torch.grid import Grid
 from emme_tpu_torch.ops import cuda_kappa, linalg
 from emme_tpu_torch.solvers import eigen
+from emme_tpu_torch.utils.timer import Timer
 
 torch.set_num_threads(2)
 
@@ -197,7 +198,8 @@ def test_solve_device_loop_matches_host(dtype, tokamak_cfg,
     omega within 1e-12, vectors > 1 - 1e-10 (tests/test_eigen.py:53-66).
     float32 with a tolerance under its floor ends through the stagnation
     counter in both.  The host loop reads the done flag every step, the
-    device loop nothing inside the loop."""
+    device loop nothing inside the loop; after it both read the step count
+    and omega in one read."""
     f64 = dtype == "float64"
     p = et.from_config(dict(tokamak_cfg, npoints=32),
                        dtype=getattr(torch, dtype), device="cpu")
@@ -219,13 +221,46 @@ def test_solve_device_loop_matches_host(dtype, tokamak_cfg,
     ref = complex(*golden_eigenvalues["tok32"]["omega"])
     assert _rel(om_d, ref) < (2e-6 if f64 else 1e-4)
     assert n_h < p.iteration_step_limit
-    assert reads["host"] == {"blocking": n_h + 2, "flag_polls": 0}
-    assert reads["device"]["blocking"] == 2
+    assert reads["host"] == {"blocking": n_h + 1, "flag_polls": 0}
+    assert reads["device"]["blocking"] == 1
     assert reads["device"]["flag_polls"] <= n_d + 1
     if not f64:   # the CPU default is the host loop
         eigen.HOST_READS.update(blocking=0, flag_polls=0)
         assert eigen.solve(p, GUESS, **kw)[2] == n_h
         assert eigen.HOST_READS == reads["host"]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_solve_timed_matches_host_loop(dtype, tokamak_cfg,
+                                       golden_eigenvalues):
+    """timed=True (the host loop with the per-phase sections,
+    tests/test_driver.py:247-263) walks the host loop's states: the same
+    omega, steps and operator, with " - linear solve", " - integration"
+    and " - differential" in the timer's report, entered once a step;
+    other methods and the device loop raise."""
+    f64 = dtype == "float64"
+    p = et.from_config(dict(tokamak_cfg, npoints=32),
+                       dtype=getattr(torch, dtype), device="cpu")
+    kw = dict(tol=1e-6, chunk=CHUNK, tiered=True) if f64 else dict(tol=1e-9)
+    om_h, vec_h, n_h, st_h = eigen.solve(p, GUESS, loop="host", **kw)
+    timer = Timer.get_timer()
+    timer.reset()
+    eigen.HOST_READS.update(blocking=0, flag_polls=0)
+    om_t, vec_t, n_t, st_t = eigen.solve(p, GUESS, timed=True, **kw)
+    assert eigen.LAST_SOLVE["loop"] == "host" and eigen.LAST_SOLVE["timed"]
+    assert eigen.HOST_READS == {"blocking": n_h + 1, "flag_polls": 0}
+    assert (om_t, n_t) == (om_h, n_h)
+    assert torch.equal(st_t.M, st_h.M) and torch.equal(vec_t, vec_h)
+    ref = complex(*golden_eigenvalues["tok32"]["omega"])
+    assert _rel(om_t, ref) < (2e-6 if f64 else 1e-4)
+    sections = (" - linear solve", " - integration", " - differential")
+    assert timer.entries == list(sections)
+    assert all(timer.timings()[s] > 0 for s in sections)
+    assert all(s in timer.report() for s in sections)
+    with pytest.raises(ValueError, match="TraceSecant only"):
+        eigen.solve(p, GUESS, timed=True, method="QRSecant")
+    with pytest.raises(ValueError, match="timed"):
+        eigen.solve(p, GUESS, timed=True, loop="device")
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,9 @@ PKG = pathlib.Path(__file__).resolve().parent.parent / "emme_tpu_torch"
 MODULES = [
     "emme_tpu_torch", "emme_tpu_torch.params", "emme_tpu_torch.geometry",
     "emme_tpu_torch.grid", "emme_tpu_torch.convert", "emme_tpu_torch._build",
+    "emme_tpu_torch.driver", "emme_tpu_torch.cli", "emme_tpu_torch.utils",
+    "emme_tpu_torch.utils.timer", "emme_tpu_torch.utils.provenance",
+    "emme_tpu_torch.utils.debug",
     "emme_tpu_torch.ops", "emme_tpu_torch.solvers",
     "emme_tpu_torch.ops.singularity", "emme_tpu_torch.ops.quadrature",
     "emme_tpu_torch.ops.bessel", "emme_tpu_torch.ops.kernels",

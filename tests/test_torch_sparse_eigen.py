@@ -20,7 +20,7 @@ from emme_tpu_torch import convert
 from emme_tpu_torch.grid import Grid
 from emme_tpu_torch.ops import cuda_kappa, cuda_spmv, kernels
 from emme_tpu_torch.ops.singularity import singularity_coeff_band
-from emme_tpu_torch.solvers import arnoldi, sparse_eigen as se
+from emme_tpu_torch.solvers import arnoldi, eigen, sparse_eigen as se
 
 torch.set_num_threads(2)
 
@@ -232,8 +232,8 @@ def test_host64_golden(tok32_slice, tokamak_cfg, golden_eigenvalues):
 
 def test_solve_shifts_and_argument_checks(tokamak_cfg):
     """solve_shifts runs each shift in order and gives solve's result; a
-    shift that raises yields (nan, None, 0) with a warning; loop='device',
-    an unknown method and fused float64 raise."""
+    shift that raises yields (nan, None, 0) with a warning; an unknown
+    loop, an unknown method and fused float64 raise."""
     p = et.from_config(dict(tokamak_cfg, npoints=32), device="cpu")
     kw = dict(tol=1e-6, block=8, band_deta=20.0, quad=QUAD, m_krylov=4)
     om, vec, steps, _ = se.solve(p, GUESS, **kw)
@@ -243,7 +243,79 @@ def test_solve_shifts_and_argument_checks(tokamak_cfg):
     with pytest.warns(UserWarning, match="failed"):
         bad = se.solve_shifts(p, [GUESS], spmv="csr", **kw)
     assert np.isnan(bad[0][0].real) and bad[0][1] is None
-    for extra in (dict(loop="device"), dict(method="Secant"),
+    for extra in (dict(loop="graph"), dict(method="Secant"),
                   dict(fused=True)):
         with pytest.raises(ValueError):
             se.solve(p, GUESS, **extra)
+
+
+@pytest.mark.parametrize("method", ["TraceSecant", "QRSecant"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_device_loop_matches_host(dtype, method, tokamak_cfg):
+    """loop="device" walks the host loop's states through the one loop body
+    the dense solver has: equal steps, omega and vector at tok32, both
+    methods, float64 and float32 (a tolerance under the float32 floor ends
+    through the stagnation rule in both).  The host loop reads the flag
+    every step, the device loop nothing inside the loop; after it each
+    reads the step count and omega once."""
+    f64 = dtype == "float64"
+    p = et.from_config(dict(tokamak_cfg, npoints=32),
+                       dtype=getattr(torch, dtype), device="cpu")
+    kw = dict(tol=1e-6 if f64 else 1e-9, block=8, band_deta=20.0, quad=QUAD,
+              method=method)
+    out, reads, did = {}, {}, {}
+    for loop in ("host", "device"):
+        eigen.HOST_READS.update(blocking=0, flag_polls=0)
+        out[loop] = se.solve(p, GUESS, loop=loop, **kw)
+        reads[loop] = dict(eigen.HOST_READS)
+        did[loop] = dict(eigen.LAST_SOLVE)
+    (om_h, vec_h, n_h, st_h), (om_d, vec_d, n_d, st_d) = out["host"], \
+        out["device"]
+    assert n_d == n_h and n_h < p.iteration_step_limit
+    assert om_d == om_h
+    assert torch.equal(st_d.M.data, st_h.M.data)
+    assert torch.equal(st_d.dM.data, st_h.dM.data)
+    assert st_d.M.offsets == st_h.M.offsets and st_d.M.block == 8
+    assert torch.equal(vec_d, vec_h)
+    assert did["host"] == dict(loop="host", method=method, steps=n_h,
+                               queued_steps=n_h)
+    assert did["device"]["loop"] == "device"
+    assert did["device"]["queued_steps"] in (n_h, n_h + 1)
+    assert reads["host"] == {"blocking": n_h + 1, "flag_polls": 0}
+    assert reads["device"]["blocking"] == 1
+    assert reads["device"]["flag_polls"] <= n_d + 1
+    # the default is the host loop
+    eigen.HOST_READS.update(blocking=0, flag_polls=0)
+    assert se.solve(p, GUESS, **kw)[2] == n_h
+    assert eigen.LAST_SOLVE["loop"] == "host"
+
+
+def test_solve_shifts_survives_keyerror(tokamak_cfg, monkeypatch):
+    """One shift of three made to fail with the KeyError that
+    kernels.scaled_quad raises on a tier spec it does not know (as
+    emme_tpu's does): that shift yields (nan, None, 0) after a warning
+    naming the shift and the exception's type, the others their solves."""
+    p = et.from_config(dict(tokamak_cfg, npoints=32), device="cpu")
+    kw = dict(tol=1e-6, block=8, band_deta=20.0, quad=QUAD, m_krylov=0,
+              tiered=True)
+    good = se.solve(p, GUESS, **kw)
+    real = kernels.tier_thresholds_ij
+    calls = []
+
+    def tiers(dx, n):
+        calls.append(1)
+        t = real(dx, n)
+        if len(calls) == 2:   # the second shift's table
+            return tuple((ub, (("n_bogus", 3),)) for ub, _ in t)
+        return t
+
+    monkeypatch.setattr(kernels, "tier_thresholds_ij", tiers)
+    sigmas = [GUESS, -0.7 + 0.2j, GUESS]
+    with pytest.warns(UserWarning, match=r"shift \(-0.7\+0.2j\) failed: "
+                                         "KeyError: 'n_bogus'"):
+        out = se.solve_shifts(p, sigmas, **kw)
+    assert len(out) == 3 and len(calls) == 3
+    assert np.isnan(out[1][0].real) and out[1][1] is None and out[1][2] == 0
+    for k in (0, 2):
+        assert out[k][0] == good[0] and out[k][2] == good[2]
+        assert torch.equal(out[k][1], good[1])
