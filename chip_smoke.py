@@ -48,7 +48,8 @@ check exits non-zero:
    inverse iteration against the SVD's on the converged M (correlation >
    1 - 1e-5, residuals, times).
 6. build_pic: kernels K2, K3, K4 compiled from csrc/pic.cu (started in
-   parallel with K1's build in phase 2).
+   parallel with K1's build in phase 2), each of K2 and K3 in its three
+   forms (csrc/pic.cu: where the field and the histogram live, by npoints).
 7. grid_sync_probe: the cooperative-launch attribute, K3's launch shape
    (co-resident grid, shared memory, registers) and K4 at that grid, which
    must see every block's writes; K4's time beside the
@@ -120,8 +121,9 @@ check exits non-zero:
    "pic_backend": "fused", "stream_fields": false, --f32), twice: one launch
    of K3 (and K4's self-check before it), the fit within 5 % / 10 % of
    golden pic_tok1024.  Then 8 steps with "pic_launch": "stages" (24 + 24
-   launches of K2) and 16 steps on the default streaming path, whose dump
-   holds 16 x 1024 complex128 values.
+   launches of K2), the same case at npoints 16,384 (time_step large_dt:
+   one launch of K3, a finite field of 16,384 entries), and 16 steps on the
+   default streaming path, whose dump holds 16 x 1024 complex128 values.
 20. driver_scan: tokamak npoints 1024 --f32 with "eta_i": {"head": 3.0,
    "step": 0.25, "tail": 3.5}: three points in walk order, each omega
    within 2e-5 of a direct eigen.solve at that eta_i from the seed the walk
@@ -137,6 +139,33 @@ check exits non-zero:
    timed=True) at tok1024: phase 4's omega within 1e-6, and the seconds a
    step of " - linear solve", " - integration" and " - differential", each
    ended by a device synchronize.
+23. pic_large_grid: K2 and K3 past the small-grid form, tokamak npoints
+   16,384 (16,777,216 markers: the histogram in shared memory, the field
+   from device memory) and 32,768 (33,554,432 markers: a scratch row a
+   block), 1024 markers per cell, drift-center, dt 0.25 scaled with the
+   cell width (large_dt: at dt 0.25 the grid-scale mode overflows float32
+   within the canonical 180 steps there).  K3 against mega_ref over 8 steps
+   at both grids
+   and K2's stage 1 against stage_ref at 16,384, at phases 8-9's bars; eta
+   bit-equal between two K3 runs and between K3 and K2 (the run entry
+   point, launch="stages", counted); the 180-step run through
+   cuda_pic.run, counted, finite, and K3 alone over it (median of 3 after
+   a warm-up) with its bound; K3 against the plain pic.run from one state
+   at 256 markers per cell, 30 steps, per-step statistics within 1 %; and,
+   reported only, K3 over 180 steps at dt 0.25 from the 1024- and the
+   256-markers-a-cell states: the first step that leaves float32.
+   Time limit 240 s.
+24. dense_arnoldi: arnoldi.solve(p, -0.8+0.25j, m_krylov=24,
+   newton_polish=6, tol=1e-5) at tok1024 float32 (assemblies through K1
+   on the base panel mesh) and eigen.solve's TraceSecant from the same
+   guess, a warm-up of each, then 5 calls of each in turns, each counted:
+   the medians and every time; within 1e-5 of golden tok1024,
+   ||M v|| / ||M||_F < 1e-4; the raw Arnoldi estimate's
+   distance to golden; the sixteen shifts of benchmarks/bench_arnoldi.py
+   (default_rng(0), -0.8+0.25j +- 0.15) through solve_shifts_batched,
+   counted, with its seconds, peak device memory and the four closest
+   estimates, two of them against solve_one_shift (BATCH_BAR).  Time limit
+   120 s.
 
 The kernels JSON gives every kernel its bound: the larger of the bytes it
 must move (each input read once, each output written once) over 3.35 TB/s
@@ -183,6 +212,15 @@ STEL_GUESS = -1.656 + 2.490j
 STEL_GOLDEN = complex(-1.65655594094, 2.49032058254)
 STEL_BAR = 2e-4
 K5_TIME_LIMIT_S = 120
+# dense_arnoldi: arnoldi.solve's tolerance (the main path's), the Krylov
+# depth of tests/test_sparse_arnoldi.py and benchmarks/bench_arnoldi.py,
+# and the bar between a batched and an unbatched float32 estimate (two LU
+# paths and sweeps: the leading Ritz value parts at ~100 ulp)
+SOLVE_TOL = 1e-5
+ARNOLDI_KW = dict(m_krylov=24)
+ARNOLDI_REPEATS = 5
+BATCH_BAR = 1e-4
+ARNOLDI_TIME_LIMIT_S = 120
 # tests/goldens/eigenvalues.json "pic_tok1024": the C++ reference's fit of
 # the canonical PIC run (its RNG differs, so the check is statistical)
 GOLDEN_PIC = complex(0.837758, 0.203384)
@@ -232,6 +270,24 @@ K3_FLOP_PER_MARKER_STAGE = {
     "asymptotic": {"0_first": 474, "0": 474, "1": 474, "2": 480},
     "static": {"0_first": 878, "0": 876, "1": 876, "2": 882}}
 BARRIER_ROUNDS = 1081   # K3's canonical run: two barriers a stage, and one
+# pic_large_grid: the forms past the small-grid build (histogram in shared
+# memory, scratch row a block), and the markers per cell of the fit check
+LARGE_NF = (16384, 32768)
+FIT_MPC = 256
+CROSS_STEPS = 30
+
+
+def large_dt(n):
+    """The canonical case's dt scaled with the cell width (2L / npoints):
+    a marker crosses as many cells a step as at npoints 1024.  At dt 0.25
+    the scheme's grid-scale mode, whose growth rate goes with 1 / cell
+    width, carries K3's statistics past float32 within the canonical 180
+    steps at npoints 16,384, the sooner the fewer markers a cell (phase 23
+    reports the step), and within 40 steps at 4,096 and 16 markers a cell
+    in emme_tpu too (tests/test_torch_cuda_pic_cpu.py); at this dt the
+    180-step run stays finite.  A step's work does not depend on dt."""
+    return PIC_DT * N_TOK / n
+LARGE_TIME_LIMIT_S = 240
 
 
 def emit(phase, **fields):
@@ -727,6 +783,266 @@ def pic_phases(torch, build_rec, card):
          "bound_by": probe_bound["bound_by"], "library_ms": None,
          "no_copy_ms": floor_ms},
     ]
+
+
+def k3_vs_plain(torch, cuda_pic, fs, qn, arrs, field, n_steps, what):
+    """K3 against mega_ref over ``n_steps`` from one state at the bars of
+    phase 9 (stats 1e-5, weights and field 2e-5 of scale, eta within 1
+    ulp), and K3 twice: eta bit-equal.  Returns (K3's result, max abs
+    error, K3 ms, plain ms)."""
+    got = cuda_pic.mega(True, fs.params, *field, qn, arrs, n_steps)
+    again = cuda_pic.mega(True, fs.params, *field, qn, arrs, n_steps)
+    ref = cuda_pic.mega_ref(True, fs.params, *field, qn, arrs, n_steps)
+    torch.cuda.synchronize()
+    check(got[5].shape == (n_steps, 3) and got[5].is_cuda
+          and all(bool(torch.isfinite(t).all()) for t in got),
+          f"{what}: K3 finite on the card")
+    check(rel_err(got[5], ref[5]) < STATS_BAR,
+          f"{what}: K3 vs plain stats {rel_err(got[5], ref[5]):.3e} < "
+          f"{STATS_BAR}")
+    for a, b in zip(got[1:5], ref[1:5]):
+        check(rel_err(a, b) < STAGE_BAR,
+              f"{what}: K3 vs plain {rel_err(a, b):.3e} < {STAGE_BAR}")
+    check(within_ulp(got[0], ref[0], torch),
+          f"{what}: K3 eta within 1 ulp of plain")
+    check(torch.equal(got[0], again[0]), f"{what}: K3 twice, eta bit-equal")
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    k_ms, _ = timed(lambda: cuda_pic.mega(True, fs.params, *field, qn, arrs,
+                                          n_steps), torch)
+    p_ms, _ = timed(lambda: cuda_pic.mega_ref(True, fs.params, *field, qn,
+                                              arrs, n_steps), torch,
+                    repeats=1)
+    return got, err, k_ms, p_ms
+
+
+def canonical_dt_run(torch, cuda_pic, p, qn, arrs, field):
+    """K3 over the canonical run's 180 steps at its dt 0.25 from the given
+    markers: the first step whose statistics leave float32 (180 when none
+    does) and the rms growth over the finite steps."""
+    stats = cuda_pic.mega(True, cuda_pic.FusedStep.params_vec(p, PIC_DT),
+                          *field, qn, arrs, PIC_STEPS)[5]
+    bad = ~torch.isfinite(stats).all(dim=1).cpu()
+    first = int(bad.nonzero()[0, 0]) if bool(bad.any()) else PIC_STEPS
+    return {"first_non_finite_step": first,
+            "rms_growth": float(stats[max(first - 1, 0), 2] / stats[0, 2])}
+
+
+def pic_large_grid_phase(torch, card):
+    """Phase 23 (pic_large_grid): K2 and K3 past the small-grid form, at
+    the canonical case's settings but npoints 16,384 (16,777,216 markers;
+    the histogram in shared memory, the field from device memory) and
+    32,768 (a scratch row a block).  Returns the K2 and K3 entries' large
+    grid fields and their launches on the run entry point."""
+    from emme_tpu_torch import from_config
+    from emme_tpu_torch.solvers import cuda_pic, pic
+
+    limit = watchdog(LARGE_TIME_LIMIT_S, "phase pic_large_grid")
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    n, n_big = LARGE_NF
+    dt = large_dt(n)
+    p = from_config(load_cfg("tokamak", n), dtype=f32)
+    m = PIC_MPC * n
+    s0 = pic.init_state(p, PIC_MPC, torch.Generator(device=dev).manual_seed(0),
+                        dtype=f32)
+    fs = cuda_pic.FusedStep(p, m, dt)
+    qn = pic.quasi_neutrality_coef(p, dtype=f32)
+    arrs0 = cuda_pic.state_to_arrs(s0)
+    field0 = (s0.field.real.contiguous(), s0.field.imag.contiguous())
+    shape = cuda_pic.mega_grid(dev, n, True)
+    check(shape["form"] == cuda_pic.FORM_HIST and shape["grid"] == shape["sms"],
+          f"npoints {n}: the histogram-in-shared-memory form, one block a SM: "
+          f"{shape}")
+    n9 = 8
+
+    # K3 against mega_ref over 8 steps
+    k3_got, k3_err, k3_ms, k3_plain_ms = k3_vs_plain(
+        torch, cuda_pic, fs, qn, arrs0, field0, n9, f"npoints {n}")
+    check(cuda_pic.LAST_MEGA_GRID == shape, "K3 ran at its launch shape")
+    asym = pic_asymptotic_share(torch, cuda_pic, fs.params, arrs0)
+    k3_bound = bound(nbytes(*field0, qn, *arrs0.values(), *k3_got),
+                     k3_flop(asym, m, n9))
+
+    # K2: one stage against stage_ref, after one plain step
+    eta, wre, wim, fr, fi, _ = cuda_pic.mega_ref(True, fs.params, *field0, qn,
+                                                 arrs0, 1)
+    arrs1 = dict(arrs0, eta=eta, w_re=wre, w_im=wim)
+    args = (1, False, True, fs.params, fr, fi, qn, arrs1)
+    got = cuda_pic.stage(*args)
+    ref = cuda_pic.stage_ref(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        check(a.is_cuda and bool(torch.isfinite(a).all())
+              and rel_err(a, b) < STAGE_BAR,
+              f"npoints {n}: K2 stage 1 vs plain {rel_err(a, b):.3e} < "
+              f"{STAGE_BAR}")
+    check(within_ulp(got[2], ref[2], torch), "K2 eta within 1 ulp of plain")
+    k2_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    k2_ms, _ = timed(lambda: cuda_pic.stage(*args), torch)
+    k2_plain_ms, _ = timed(lambda: cuda_pic.stage_ref(*args), torch)
+    k2_bound = bound(nbytes(fr, fi, qn, *arrs1.values(), *got),
+                     m * by_branch(K2_FLOP_PER_MARKER_STAGE, pic_asymptotic_share(
+                         torch, cuda_pic, fs.params, arrs1), "1"))
+    del arrs1, got, ref, eta, wre, wim, fr, fi
+
+    # K2 through the run entry point, 8 steps, counted: eta bit-equal to K3
+    for k in cuda_pic.LAUNCHES:
+        cuda_pic.LAUNCHES[k] = 0
+    _, s_k2, _ = cuda_pic.run(p, PIC_MPC, n9, dt, state=s0,
+                              launch="stages")
+    torch.cuda.synchronize()
+    k2_launches = dict(cuda_pic.LAUNCHES)
+    check(k2_launches["pic_stage"] == 3 * n9 == k2_launches["pic_field"],
+          f"npoints {n}, launch='stages': K2 3 x {n9} times: {k2_launches}")
+    check(torch.equal(s_k2.eta, k3_got[0]), f"npoints {n}: K3 and K2 eta "
+                                            "bit-equal")
+    del s_k2, k3_got
+
+    # the 180-step run through cuda_pic.run (launch 'auto'), counted, and
+    # K3 alone over it: median of 3 after a warm-up
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(1)
+        return cuda_pic.run(p, PIC_MPC, PIC_STEPS, dt, generator=gen)
+
+    run()
+    cuda_pic._SELFCHECK.clear()
+    for k in cuda_pic.LAUNCHES:
+        cuda_pic.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats, s_end, _ = run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_launches = dict(cuda_pic.LAUNCHES)
+    check(cuda_pic.LAST_LAUNCH == "single" and run_launches["pic_mega"] == 1
+          and run_launches["grid_sync_probe"] >= 1,
+          f"npoints {n}: the run took K3 once, after K4: {run_launches}")
+    # the grid-scale mode still grows fast at this grid (large_dt): the
+    # run's statistics must stay finite over all its steps
+    finite = torch.isfinite(stats).all(dim=1).cpu()
+    first_bad = int((~finite).nonzero()[0, 0]) if not bool(finite.all()) \
+        else PIC_STEPS
+    check(first_bad == PIC_STEPS, f"npoints {n}: the run's statistics are "
+                                  f"finite (first non-finite step {first_bad})")
+    growth = float(stats[-1, 2] / stats[0, 2])
+    del s_end
+    # the same markers at the canonical dt 0.25 (reported, not checked)
+    canon_dt = canonical_dt_run(torch, cuda_pic, p, qn, arrs0, field0)
+    s1 = pic.init_state(p, PIC_MPC, torch.Generator(device=dev).manual_seed(1),
+                        dtype=f32)
+    arrs_r = cuda_pic.state_to_arrs(s1)
+    field_r = (s1.field.real.contiguous(), s1.field.imag.contiguous())
+    del s1
+    run_ms, run_out = timed(lambda: cuda_pic.mega(
+        True, fs.params, *field_r, qn, arrs_r, PIC_STEPS), torch)
+    run_bound = bound(nbytes(*field_r, qn, *arrs_r.values(), *run_out),
+                      k3_flop(pic_asymptotic_share(torch, cuda_pic, fs.params,
+                                                   arrs_r), m, PIC_STEPS))
+    del arrs_r, field_r, run_out, arrs0, field0, s0
+
+    # K3 against the plain run (pic.run) from one state at 256 markers per
+    # cell: per-step statistics within 1 % (no fit: the series is the
+    # grid-scale mode's growth, not the canonical mode's oscillation)
+    s_fit = pic.init_state(p, FIT_MPC, torch.Generator(device=dev).manual_seed(1),
+                           dtype=f32)
+    fit_canon_dt = canonical_dt_run(torch, cuda_pic, p, qn,
+                                    cuda_pic.state_to_arrs(s_fit),
+                                    (s_fit.field.real.contiguous(),
+                                     s_fit.field.imag.contiguous()))
+    for k in cuda_pic.LAUNCHES:
+        cuda_pic.LAUNCHES[k] = 0
+    st_fit, _, _ = cuda_pic.run(p, FIT_MPC, CROSS_STEPS, dt, state=s_fit)
+    torch.cuda.synchronize()
+    fit_launches = dict(cuda_pic.LAUNCHES)
+    check(cuda_pic.LAST_LAUNCH == "single" and fit_launches["pic_mega"] == 1,
+          f"the cross-check run took K3: {fit_launches}")
+    t0 = time.perf_counter()
+    st_plain, _, _ = pic.run(p, FIT_MPC, CROSS_STEPS, dt, state=s_fit)
+    torch.cuda.synchronize()
+    plain_run_s = time.perf_counter() - t0
+    both = (torch.isfinite(st_fit).all(dim=1)
+            & torch.isfinite(st_plain).all(dim=1)).cpu()
+    n_both = int(both.cumprod(0).sum())
+    step_diff = float(((st_fit - st_plain).norm(dim=1)
+                       / st_plain.norm(dim=1))[:n_both].max())
+    check(n_both == CROSS_STEPS and step_diff < 0.01,
+          f"npoints {n} x {FIT_MPC}: K3 and the plain run agree to 1 % a "
+          f"step over {n_both} finite steps: {step_diff:.3e}")
+    del s_fit, st_plain, st_fit
+
+    # npoints 32,768: the scratch-row form
+    pb = from_config(load_cfg("tokamak", n_big), dtype=f32)
+    sb = pic.init_state(pb, PIC_MPC, torch.Generator(device=dev).manual_seed(0),
+                        dtype=f32)
+    fsb = cuda_pic.FusedStep(pb, PIC_MPC * n_big, large_dt(n_big))
+    qnb = pic.quasi_neutrality_coef(pb, dtype=f32)
+    arrs_b = cuda_pic.state_to_arrs(sb)
+    field_b = (sb.field.real.contiguous(), sb.field.imag.contiguous())
+    del sb
+    shape_b = cuda_pic.mega_grid(dev, n_big, True)
+    check(shape_b["form"] == cuda_pic.FORM_GLOBAL
+          and shape_b["grid"] == shape_b["sms"],
+          f"npoints {n_big}: the scratch-row form, one block a SM: {shape_b}")
+    big_got, big_err, big_ms, big_plain_ms = k3_vs_plain(
+        torch, cuda_pic, fsb, qnb, arrs_b, field_b, n9, f"npoints {n_big}")
+    big_bound = bound(nbytes(*field_b, qnb, *arrs_b.values(), *big_got),
+                      k3_flop(pic_asymptotic_share(torch, cuda_pic, fsb.params,
+                                                   arrs_b), PIC_MPC * n_big,
+                              n9))
+    del big_got, arrs_b, field_b
+    torch.cuda.empty_cache()
+
+    emit("pic_large_grid", case=f"tokamak npoints {n} x {PIC_MPC} markers/cell, "
+         f"dt {dt}, f32, drift-center; and npoints {n_big}, dt "
+         f"{large_dt(n_big)}", markers=m, dt=dt,
+         launch_shape=shape, launch_shape_big=shape_b,
+         k3_vs_plain_max_abs_err=k3_err, k3_ms=k3_ms, k3_plain_ms=k3_plain_ms,
+         k3_bound_ms=k3_bound["bound_ms"], k2_vs_plain_max_abs_err=k2_err,
+         k2_stage_ms=k2_ms, k2_plain_ms=k2_plain_ms,
+         k2_bound_ms=k2_bound["bound_ms"], k2_launches=k2_launches,
+         run={"steps": PIC_STEPS, "seconds": run_s, "launches": run_launches,
+              "first_non_finite_step": first_bad, "rms_growth": growth,
+              "at_dt_0.25": canon_dt,
+              "k3_ms": run_ms,
+              "bound_ms": run_bound["bound_ms"],
+              "bound_by": run_bound["bound_by"],
+              "share_of_bound": run_bound["bound_ms"] / run_ms},
+         cross_check={"markers_per_cell": FIT_MPC, "steps": CROSS_STEPS,
+                      "at_dt_0.25": fit_canon_dt,
+                      "finite_steps": n_both, "max_step_stats_rel_diff":
+                      step_diff, "plain_seconds": plain_run_s,
+                      "launches": fit_launches},
+         big={"npoints": n_big, "markers": PIC_MPC * n_big,
+              "k3_vs_plain_max_abs_err": big_err, "k3_ms": big_ms,
+              "k3_plain_ms": big_plain_ms, "bound_ms": big_bound["bound_ms"],
+              "bound_by": big_bound["bound_by"],
+              "share_of_bound": big_bound["bound_ms"] / big_ms},
+         card=card)
+    limit.cancel()
+    k2 = {"large_grid_npoints": n, "large_grid_ms": k2_ms,
+          "large_grid_plain_ms": k2_plain_ms,
+          "large_grid_bound_ms": k2_bound["bound_ms"],
+          "large_grid_bound_by": k2_bound["bound_by"],
+          "large_grid_share": k2_bound["bound_ms"] / k2_ms,
+          "large_grid_max_abs_err": k2_err}
+    k3 = {"large_grid_npoints": n, "large_grid_ms": k3_ms,
+          "large_grid_plain_ms": k3_plain_ms,
+          "large_grid_bound_ms": k3_bound["bound_ms"],
+          "large_grid_bound_by": k3_bound["bound_by"],
+          "large_grid_share": k3_bound["bound_ms"] / k3_ms,
+          "large_grid_max_abs_err": max(k3_err, big_err),
+          "large_grid_run_ms": run_ms,
+          "large_grid_run_bound_ms": run_bound["bound_ms"],
+          "large_grid_run_share": run_bound["bound_ms"] / run_ms,
+          "large_grid_32768_ms": big_ms,
+          "large_grid_32768_plain_ms": big_plain_ms,
+          "large_grid_32768_bound_ms": big_bound["bound_ms"]}
+    launches = {"pic_stage": k2_launches["pic_stage"],
+                "pic_field": k2_launches["pic_field"],
+                "pic_mega": run_launches["pic_mega"] + fit_launches["pic_mega"],
+                "grid_sync_probe": run_launches["grid_sync_probe"]
+                + fit_launches["grid_sync_probe"]}
+    return k2, k3, launches
 
 
 def compare_f64(p, eta_a, eta_b, omega, quad, torch, cuda_kappa):
@@ -1436,6 +1752,23 @@ def driver_phases(torch, card, slice_omega, certify_s):
               f"pic_launch 'stages', 8 steps: 24 + 24 launches of K2: {got8}")
         for k in ("pic_stage", "pic_field"):
             credit(k, got8, "driver_pic stages")
+        n_large = LARGE_NF[0]
+        doc_l, _, secs_l, _, got_l = run_cli(
+            tmp, "driver_pic_large", dict(pic_cfg, npoints=n_large,
+                                          time_step=large_dt(n_large)),
+            "--f32", runs=1)
+        res_l = single(doc_l)
+        check(cuda_pic.LAST_LAUNCH == "single" and got_l["pic_mega"] == 1
+              and got_l["grid_sync_probe"] >= 1,
+              f"npoints {n_large} from an input file ran K3 once, after K4: "
+              f"{got_l}")
+        check(len(res_l["eigenvector"]) == n_large
+              and all(math.isfinite(v) for pair in res_l["eigenvector"]
+                      for v in pair),
+              f"npoints {n_large} from an input file: a finite field of "
+              f"{n_large} entries")
+        for k in ("pic_mega", "grid_sync_probe"):
+            credit(k, got_l, f"driver_pic npoints {n_large}")
         stream_cfg = {k: v for k, v in pic_cfg.items()
                       if k not in ("pic_backend", "stream_fields")}
         _, out16, secs16, _, got16 = run_cli(
@@ -1455,6 +1788,8 @@ def driver_phases(torch, card, slice_omega, certify_s):
              path="single", launches=got,
              stages={"steps": 8, "seconds": secs8, "launches": got8,
                      "omega": single(doc8)["eigenvalue"]},
+             large_grid={"npoints": n_large, "seconds": secs_l,
+                         "launches": got_l, "omega": res_l["eigenvalue"]},
              streaming={"steps": 16, "seconds": secs16,
                         "dump_values": int(hist.shape[0])}, card=card)
 
@@ -1562,6 +1897,117 @@ def driver_phases(torch, card, slice_omega, certify_s):
                                                   per_step.values()),
           f"the three sections were timed: {timer.timings()}")
     return launches, {k: " + ".join(v) for k, v in sources.items()}
+
+
+def dense_arnoldi_phase(torch, card):
+    """Phase 24 (dense_arnoldi): the shift-invert Arnoldi estimate plus
+    Newton polish against pure Newton (TraceSecant) at tok1024 float32, and
+    the sixteen shifts of benchmarks/bench_arnoldi.py batched.  Returns
+    K1's launches on these two paths."""
+    import numpy as np
+
+    from emme_tpu_torch import from_config
+    from emme_tpu_torch.grid import Grid
+    from emme_tpu_torch.ops import cuda_kappa
+    from emme_tpu_torch.ops.singularity import singularity_coeff_matrix
+    from emme_tpu_torch.solvers import arnoldi, eigen
+
+    limit = watchdog(ARNOLDI_TIME_LIMIT_S, "phase dense_arnoldi")
+    f32 = torch.float32
+    p = from_config(load_cfg("tokamak", N_TOK), dtype=f32)
+    golden = [GOLDEN_TOK1024.real, GOLDEN_TOK1024.imag]
+
+    def rel(om):
+        return abs(om - GOLDEN_TOK1024) / abs(GOLDEN_TOK1024)
+
+    def arnoldi_solve():
+        return arnoldi.solve(p, GUESS, m_krylov=ARNOLDI_KW["m_krylov"],
+                             newton_polish=6, tol=SOLVE_TOL)
+
+    def trace_solve():
+        return eigen.solve(p, GUESS, tol=SOLVE_TOL, chunk=16384)
+
+    # one shift: Arnoldi + polish against TraceSecant from the same guess,
+    # in turns after a warm-up of each, every call counted from 0
+    secs = {"arnoldi": [], "trace": []}
+    for fn in (arnoldi_solve, trace_solve):
+        fn()
+    for _ in range(ARNOLDI_REPEATS):
+        for name, fn in (("arnoldi", arnoldi_solve), ("trace", trace_solve)):
+            cuda_kappa.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+            if name == "arnoldi":
+                (om, vec, steps), arn_launches = out, cuda_kappa.LAUNCHES
+            else:
+                (om_t, _, steps_t, _), trace_launches = out, cuda_kappa.LAUNCHES
+    arn_s, trace_s = (statistics.median(secs[k]) for k in ("arnoldi", "trace"))
+    raw, _, _ = arnoldi.solve(p, GUESS, m_krylov=ARNOLDI_KW["m_krylov"],
+                              newton_polish=0)
+    grid = Grid.create(p.length, p.npoints, dtype=f32)
+    coeff = singularity_coeff_matrix(p.npoints, dtype=f32)
+    M = eigen.assemble_matrix(p, grid, coeff, torch.tensor(
+        om, dtype=torch.complex64, device=grid.eta.device), None, 2048,
+        None, True)
+    residual = float(torch.linalg.vector_norm(M @ vec)
+                     / torch.linalg.matrix_norm(M))
+    del M
+    check(rel(om) < SOLVE_BAR, f"Arnoldi + polish omega rel err "
+                               f"{rel(om):.3e} < {SOLVE_BAR}")
+    check(residual < RESIDUAL_BAR,
+          f"Arnoldi ||M v||/||M||_F {residual:.3e} < {RESIDUAL_BAR}")
+    check(arn_launches > 0 and vec.is_cuda,
+          f"the Arnoldi solve went through K1 on the card: {arn_launches}")
+
+    # sixteen shifts, batched: one (16, n, n) LU and one Arnoldi sweep
+    rng = np.random.default_rng(0)
+    sigmas = GUESS + 0.15 * (rng.normal(size=16) + 1j * rng.normal(size=16))
+    arnoldi.solve_shifts_batched(p, sigmas[:2], **ARNOLDI_KW)   # warm-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kappa.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ests = arnoldi.solve_shifts_batched(p, sigmas, **ARNOLDI_KW)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    batch_launches = cuda_kappa.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    dist = sorted((rel(e), k) for k, e in enumerate(ests))
+    check(len(ests) == 16 and all(np.isfinite(ests)),
+          "sixteen finite estimates")
+    check(batch_launches > 0, "the batched shifts went through K1")
+    unbatched = {}
+    for _, k in dist[:2]:
+        one, _, _ = arnoldi.solve_one_shift(p, grid, coeff, sigmas[k],
+                                            ARNOLDI_KW["m_krylov"])
+        unbatched[k] = abs(ests[k] - one) / abs(one)
+        check(unbatched[k] < BATCH_BAR,
+              f"shift {k}: batched vs unbatched estimate "
+              f"{unbatched[k]:.3e} < {BATCH_BAR}")
+    emit("dense_arnoldi", case=f"tok{N_TOK} float32 dense, sigma {GUESS}, "
+         "m_krylov 24, newton_polish 6, tol 1e-5", omega=[om.real, om.imag],
+         golden=golden, rel_err=rel(om), raw_estimate_rel_err=rel(raw),
+         polish_steps=steps, seconds=arn_s, all_seconds=secs["arnoldi"],
+         k1_launches=arn_launches, residual=residual,
+         trace_secant={"omega": [om_t.real, om_t.imag],
+                       "rel_err": rel(om_t), "steps": steps_t,
+                       "seconds": trace_s, "all_seconds": secs["trace"],
+                       "k1_launches": trace_launches},
+         faster="TraceSecant" if trace_s < arn_s else "Arnoldi + polish",
+         shifts={"n": 16, "seconds": batch_s, "peak_memory_bytes": peak,
+                 "k1_launches": batch_launches,
+                 "closest_rel_err": [d for d, _ in dist[:4]],
+                 "batched_vs_unbatched": {str(k): v
+                                          for k, v in unbatched.items()}},
+         card=card)
+    limit.cancel()
+    return {"launches": arn_launches + batch_launches,
+            "from": f"arnoldi.solve tok{N_TOK} ({arn_launches}) + "
+                    f"solve_shifts_batched 16 shifts ({batch_launches})"}
 
 
 def main():
@@ -1685,6 +2131,8 @@ def main():
     k5, k1_banded = banded_phases(torch, builds["spmv"], card)
     drv_launches, drv_from = driver_phases(torch, card, om,
                                            k1_dense["certify_seconds"])
+    k2_large, k3_large, large_launches = pic_large_grid_phase(torch, card)
+    k1_arnoldi = dense_arnoldi_phase(torch, card)
 
     k1_bound = bound(sum(r["bytes"] for r in rows),
                      sum(r["flop"] for r in rows))
@@ -1695,12 +2143,14 @@ def main():
         "route": "cuda",
         "source": "emme_tpu_torch/csrc/kappa.cu",
         "replaces": "emme_tpu/ops/pallas_kappa.py:241",
-        "launches": launches + k1_dense["launches"] + k1_banded["launches"],
+        "launches": launches + k1_dense["launches"] + k1_banded["launches"]
+        + k1_arnoldi["launches"],
         "launches_from": f"eigen.solve tok{N_TOK} ({launches}) + host64 "
                          f"({k1_dense['certify_launches']}) + stel{N_TOK} "
                          f"host64 ({k1_dense['stel_launches']}) + "
                          f"sparse_eigen.solve tok{N_BAND} "
-                         f"({k1_banded['launches']})",
+                         f"({k1_banded['launches']}) + "
+                         f"{k1_arnoldi['from']}",
         "max_abs_err": max([r["max_abs_err"] for r in rows]
                            + [r_em["max_abs_err"], k1_dense["max_abs_err"],
                               k1_banded["max_abs_err"]]),
@@ -1716,6 +2166,15 @@ def main():
         "stel_bound_ms": k1_stel_bound["bound_ms"],
         "stel_ms_at": f"one stel{N_TOK} assembly, all tiers, three moments",
     }] + pic_kernels + [k5]}
+    # the large-grid runs of K2, K3 and K4 (phase 23)
+    for k in kernels_line["kernels"]:
+        extra = {"pic_stage": k2_large, "pic_mega": k3_large}.get(k["name"],
+                                                                   {})
+        k.update(extra)
+        if k["name"] in large_launches:
+            k["launches"] += large_launches[k["name"]]
+            k["launches_from"] += (f" + npoints {LARGE_NF[0]} "
+                                   f"({large_launches[k['name']]})")
     # every kernel's launches on the driver's paths, from input files
     field_launches = drv_launches.pop("pic_field")
     for k in kernels_line["kernels"]:

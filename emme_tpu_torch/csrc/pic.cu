@@ -41,7 +41,9 @@
 // a few true divisions: on the Taylor side about 1,400 instructions, 660 of
 // them float32 arithmetic (1,120 and 500 in K3, which carries one J0 and one
 // sincos over from the stage before), against 50 to 90 bytes of marker
-// traffic; the field and the histogram (4 nf floats) live in shared memory.  What the design does about it: the Taylor
+// traffic; up to 12,288 grid points the field and the histogram (4 nf
+// floats) live in shared memory (the forms, below).  What the design does
+// about it: the Taylor
 // sums are unrolled and divide by their compile-time constants with the exact
 // three-operation sequence of div_const (five instructions a term where an
 // IEEE division took about thirteen); sin and cos of one angle come from one
@@ -51,12 +53,27 @@
 // distributed shared memory: 132 blocks make a grid barrier cost 1.2 us (736
 // blocks: 1.9 us) and leave only 132 partials to sum, and the 64
 // registers a thread that 1024 threads allow hold the stage body without
-// spills.  K3 and K4 ask for a SM's whole share of shared memory, so that
-// exactly one block sits on each SM.  The field reduce
+// spills.  K4, and K3 in its small-grid form, ask for a SM's whole share of
+// shared memory, so that exactly one block sits on each SM.  The field reduce
 // uses one block a tile instead of 2 nf threads in all, and the per-step
 // statistics fall out of it.  K3 keeps two grid barriers a stage.  No tensor
 // core is used: nothing here is a matrix product.  The math routines must be
 // the full-range IEEE ones: do not build with --use_fast_math.
+//
+// Where a stage keeps the field and the deposit histogram is its form,
+// chosen by nf alone (cuda_pic.form), never because a launch failed:
+//   kFormShared, nf <= kSharedNf: both in shared memory, 16 nf bytes (the
+//     small-grid build, the canonical case's);
+//   kFormHist, nf <= kHistNf: the histogram in shared memory, 8 nf bytes
+//     beside the reduce's 8 KB; the field planes read from device memory,
+//     2 nf floats that stay in L1 and L2 (K3's are written by its own
+//     reduce, so they are read with plain loads after the grid barrier,
+//     not through the read-only path);
+//   kFormGlobal, above: each block deposits into its own row of a float32
+//     scratch (n_blocks, 2, nf) in device memory, read back through L2 by
+//     write_partials.
+// The partials and their fixed-order float64 sum are the same in every
+// form, so eta repeats bit for bit and the field to rounding in each.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -66,7 +83,11 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 1024;        // threads a block, every kernel here
-constexpr int kMaxNf = 12288;         // 4 nf floats of shared memory: 192 KB
+constexpr int kFormShared = 0;
+constexpr int kFormHist = 1;
+constexpr int kFormGlobal = 2;
+constexpr int kSharedNf = 12288;      // 4 nf floats of shared memory: 192 KB
+constexpr int kHistNf = 27648;        // 2 nf floats: 216 KB, + 8 KB static
 constexpr int kTile = 32;             // columns a block reduces at a time
 // The most shared memory one block may have (a SM's 228 KB less the 1 KB the
 // runtime keeps), static and dynamic together.
@@ -216,7 +237,7 @@ __device__ __forceinline__ float dc_phase(const Params& P, float eta, float se,
 }
 
 // One RK stage for one marker (pallas_pic.py:178-279).  sfr / sfi: the field
-// planes in shared memory.  vpre / vpim: stage 1's velocity (stage 2 only).
+// planes (Planes).  vpre / vpim: stage 1's velocity (stage 2 only).
 template <int STAGE, bool FIRST, bool DC, bool CARRY>
 __device__ __forceinline__ StageOut stage_marker(
     const Params& P, const float* sfr, const float* sfi, int nf, float eta,
@@ -340,28 +361,60 @@ __device__ __forceinline__ void deposit(float* hr, float* hi,
   atomicAdd(hi + o.ir, o.deni * o.w2);
 }
 
-// Shared-memory layout of K2 and K3: field re, im, histogram re, im.
-__device__ __forceinline__ void stage_field(float* smem, const float* fr,
-                                            const float* fi, int nf) {
-  for (int c = threadIdx.x; c < nf; c += blockDim.x) {
-    smem[c] = __ldcg(fr + c);
-    smem[nf + c] = __ldcg(fi + c);
-    smem[2 * nf + c] = 0.0f;
-    smem[3 * nf + c] = 0.0f;
+// The field planes a stage gathers from and the histogram it deposits
+// into (hi = hr + nf).  kFormShared: shared memory laid out as field re,
+// im, histogram re, im; kFormHist: the field in device memory, the
+// histogram in shared memory; kFormGlobal: both in device memory, the
+// histogram the block's row of `scratch`.
+struct Planes {
+  const float* fr;
+  const float* fi;
+  float* hr;
+  float* hi;
+};
+
+template <int FORM>
+__device__ __forceinline__ Planes planes(float* smem, float* scratch,
+                                         const float* fr, const float* fi,
+                                         int nf) {
+  if (FORM == kFormShared)
+    return {smem, smem + nf, smem + 2 * nf, smem + 3 * nf};
+  float* h = FORM == kFormHist
+      ? smem : scratch + static_cast<size_t>(blockIdx.x) * 2 * nf;
+  return {fr, fi, h, h + nf};
+}
+
+// The start of a stage: kFormShared copies the field into shared memory;
+// every form zeroes the histogram.
+template <int FORM>
+__device__ __forceinline__ void stage_begin(float* smem, const Planes& pl,
+                                            const float* fr, const float* fi,
+                                            int nf) {
+  if (FORM == kFormShared) {
+    for (int c = threadIdx.x; c < nf; c += blockDim.x) {
+      smem[c] = __ldcg(fr + c);
+      smem[nf + c] = __ldcg(fi + c);
+      smem[2 * nf + c] = 0.0f;
+      smem[3 * nf + c] = 0.0f;
+    }
+  } else {
+    for (int c = threadIdx.x; c < 2 * nf; c += blockDim.x) pl.hr[c] = 0.0f;
   }
   __syncthreads();
 }
 
 // First level of the deposit sum: the block's histogram becomes its float64
-// partial, partials (n_blocks, 2, nf).
-__device__ __forceinline__ void write_partials(const float* smem,
+// partial, partials (n_blocks, 2, nf).  A scratch row (kFormGlobal) took
+// its deposits as atomics in L2, so it is read from there.
+template <int FORM>
+__device__ __forceinline__ void write_partials(const float* hist,
                                                double* partials, int nf) {
   __syncthreads();
   const int ncol = 2 * nf;
   double* part = partials + static_cast<size_t>(blockIdx.x) * ncol;
-  const float* hist = smem + 2 * nf;
   for (int c = threadIdx.x; c < ncol; c += blockDim.x)
-    part[c] = static_cast<double>(hist[c]);
+    part[c] = static_cast<double>(FORM == kFormGlobal ? __ldcg(hist + c)
+                                                      : hist[c]);
 }
 
 // Second level: field = qn * sum over the partials (n_part, 2, nf), in a
@@ -417,18 +470,19 @@ __device__ __forceinline__ void reduce_field(const double* partials,
 // K2: one stage (pic_stage_kernel), then the field (pic_field_kernel)
 // ---------------------------------------------------------------------------
 
-template <int STAGE, bool FIRST, bool DC>
+template <int STAGE, bool FIRST, bool DC, int FORM>
 __global__ void __launch_bounds__(kThreads)
 pic_stage_kernel(Params P, const float* fr, const float* fi, Markers mk,
                  const float* vpre, const float* vpim, float* velre_o,
                  float* velim_o, float* eta_o, float* wre_o, float* wim_o,
-                 double* partials, int m, int nf) {
+                 double* partials, float* scratch, int m, int nf) {
   extern __shared__ float smem[];
-  stage_field(smem, fr, fi, nf);
+  const Planes pl = planes<FORM>(smem, scratch, fr, fi, nf);
+  stage_begin<FORM>(smem, pl, fr, fi, nf);
   const int stride = gridDim.x * blockDim.x;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < m; i += stride) {
     const StageOut o = stage_marker<STAGE, FIRST, DC, false>(
-        P, smem, smem + nf, nf, mk.eta[i], mk.vpar[i], mk.vperp[i], mk.wre[i],
+        P, pl.fr, pl.fi, nf, mk.eta[i], mk.vpar[i], mk.vperp[i], mk.wre[i],
         mk.wim[i], mk.odv[i], mk.ost[i], mk.pw[i],
         STAGE == 2 ? vpre[i] : 0.0f, STAGE == 2 ? vpim[i] : 0.0f, Carry{});
     velre_o[i] = o.velr;
@@ -436,9 +490,9 @@ pic_stage_kernel(Params P, const float* fr, const float* fi, Markers mk,
     eta_o[i] = o.eta;
     wre_o[i] = o.wre;
     wim_o[i] = o.wim;
-    deposit(smem + 2 * nf, smem + 3 * nf, o);
+    deposit(pl.hr, pl.hi, o);
   }
-  write_partials(smem, partials, nf);
+  write_partials<FORM>(pl.hr, partials, nf);
 }
 
 // One block a tile of kTile columns.
@@ -465,7 +519,7 @@ struct MegaState {          // eta, wre, wim updated in place; vel, Carry
 };
 
 template <int STAGE, bool FIRST, bool DC>
-__device__ __forceinline__ void mega_markers(const Params& P, float* smem,
+__device__ __forceinline__ void mega_markers(const Params& P, const Planes& pl,
                                              const Markers& mk,
                                              const MegaState& st, int m,
                                              int nf) {
@@ -480,7 +534,7 @@ __device__ __forceinline__ void mega_markers(const Params& P, float* smem,
       }
     }
     const StageOut o = stage_marker<STAGE, FIRST, DC, true>(
-        P, smem, smem + nf, nf, st.eta[i], mk.vpar[i], mk.vperp[i], st.wre[i],
+        P, pl.fr, pl.fi, nf, st.eta[i], mk.vpar[i], mk.vperp[i], st.wre[i],
         st.wim[i], mk.odv[i], mk.ost[i], mk.pw[i],
         STAGE == 2 ? st.velre[i] : 0.0f, STAGE == 2 ? st.velim[i] : 0.0f, in);
     st.j0[i] = o.j0;
@@ -495,7 +549,7 @@ __device__ __forceinline__ void mega_markers(const Params& P, float* smem,
     st.eta[i] = o.eta;
     st.wre[i] = o.wre;
     st.wim[i] = o.wim;
-    deposit(smem + 2 * nf, smem + 3 * nf, o);
+    deposit(pl.hr, pl.hi, o);
   }
 }
 
@@ -530,14 +584,15 @@ constexpr int kPartReduce = 2;
 
 // fbuf: two field buffers of (2, nf); t reads buffer t % 2 (t == 0: the
 // initial field) and writes buffer (t + 1) % 2.  stats: (n_steps, 3).
+// scratch: (n_blocks, 2, nf) for kFormGlobal, else unused.
 // One block in `spread` reduces, so that the reducing blocks sit on as many
 // SMs as there are tiles.
-template <bool DC>
+template <bool DC, int FORM>
 __global__ void __launch_bounds__(kThreads)
 pic_mega_kernel(Params P, const float* fr_in, const float* fi_in,
                 const float* qn, Markers mk, MegaState st, double* partials,
-                float* fbuf, double* tile_stats, float* stats, int n_steps,
-                int m, int nf, int parts) {
+                float* fbuf, double* tile_stats, float* stats, float* scratch,
+                int n_steps, int m, int nf, int parts) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
   const int grid_blocks = static_cast<int>(gridDim.x);
@@ -548,18 +603,21 @@ pic_mega_kernel(Params P, const float* fr_in, const float* fi_in,
   for (int t = 0; t < 3 * n_steps; ++t) {
     const int stage = t % 3;
     const float* cur = fbuf + (t % 2) * 2 * nf;
-    stage_field(smem, t == 0 ? fr_in : cur, t == 0 ? fi_in : cur + nf, nf);
+    const float* fr = t == 0 ? fr_in : cur;
+    const float* fi = t == 0 ? fi_in : cur + nf;
+    const Planes pl = planes<FORM>(smem, scratch, fr, fi, nf);
+    stage_begin<FORM>(smem, pl, fr, fi, nf);
     if (!(parts & kPartMarkers)) {
     } else if (t == 0) {
-      mega_markers<0, true, DC>(P, smem, mk, st, m, nf);
+      mega_markers<0, true, DC>(P, pl, mk, st, m, nf);
     } else if (stage == 0) {
-      mega_markers<0, false, DC>(P, smem, mk, st, m, nf);
+      mega_markers<0, false, DC>(P, pl, mk, st, m, nf);
     } else if (stage == 1) {
-      mega_markers<1, false, DC>(P, smem, mk, st, m, nf);
+      mega_markers<1, false, DC>(P, pl, mk, st, m, nf);
     } else {
-      mega_markers<2, false, DC>(P, smem, mk, st, m, nf);
+      mega_markers<2, false, DC>(P, pl, mk, st, m, nf);
     }
-    write_partials(smem, partials, nf);
+    write_partials<FORM>(pl.hr, partials, nf);
     grid.sync();
     float* nxt = fbuf + ((t + 1) % 2) * 2 * nf;
     if (reducer)
@@ -620,32 +678,59 @@ grid_sync_probe_kernel(const float* x, float* buf_a, float* buf_b, int slice,
 
 using StageFn = void (*)(Params, const float*, const float*, Markers,
                          const float*, const float*, float*, float*, float*,
-                         float*, float*, double*, int, int);
+                         float*, float*, double*, float*, int, int);
 
-StageFn stage_fn(int stage, int first, int dc) {
+int form_of(int nf) {
+  return nf <= kSharedNf ? kFormShared
+                         : (nf <= kHistNf ? kFormHist : kFormGlobal);
+}
+
+template <int FORM>
+StageFn stage_fn_form(int stage, int first, int dc) {
   if (first && stage != 0) return nullptr;
   if (dc) {
-    if (stage == 0) return first ? pic_stage_kernel<0, true, true>
-                                 : pic_stage_kernel<0, false, true>;
-    if (stage == 1) return pic_stage_kernel<1, false, true>;
-    if (stage == 2) return pic_stage_kernel<2, false, true>;
+    if (stage == 0) return first ? pic_stage_kernel<0, true, true, FORM>
+                                 : pic_stage_kernel<0, false, true, FORM>;
+    if (stage == 1) return pic_stage_kernel<1, false, true, FORM>;
+    if (stage == 2) return pic_stage_kernel<2, false, true, FORM>;
   } else {
-    if (stage == 0) return first ? pic_stage_kernel<0, true, false>
-                                 : pic_stage_kernel<0, false, false>;
-    if (stage == 1) return pic_stage_kernel<1, false, false>;
-    if (stage == 2) return pic_stage_kernel<2, false, false>;
+    if (stage == 0) return first ? pic_stage_kernel<0, true, false, FORM>
+                                 : pic_stage_kernel<0, false, false, FORM>;
+    if (stage == 1) return pic_stage_kernel<1, false, false, FORM>;
+    if (stage == 2) return pic_stage_kernel<2, false, false, FORM>;
   }
   return nullptr;
 }
 
-const void* mega_fn(int dc) {
-  return dc ? reinterpret_cast<const void*>(pic_mega_kernel<true>)
-            : reinterpret_cast<const void*>(pic_mega_kernel<false>);
+StageFn stage_fn(int stage, int first, int dc, int nf) {
+  switch (form_of(nf)) {
+    case kFormShared: return stage_fn_form<kFormShared>(stage, first, dc);
+    case kFormHist: return stage_fn_form<kFormHist>(stage, first, dc);
+    default: return stage_fn_form<kFormGlobal>(stage, first, dc);
+  }
 }
 
-size_t smem_bytes(int nf) { return static_cast<size_t>(4) * nf * sizeof(float); }
+template <int FORM>
+const void* mega_fn_form(int dc) {
+  return dc ? reinterpret_cast<const void*>(pic_mega_kernel<true, FORM>)
+            : reinterpret_cast<const void*>(pic_mega_kernel<false, FORM>);
+}
 
-bool bad_nf(int nf) { return nf < kTile || nf % kTile || nf > kMaxNf; }
+const void* mega_fn(int dc, int nf) {
+  switch (form_of(nf)) {
+    case kFormShared: return mega_fn_form<kFormShared>(dc);
+    case kFormHist: return mega_fn_form<kFormHist>(dc);
+    default: return mega_fn_form<kFormGlobal>(dc);
+  }
+}
+
+// The dynamic shared memory a stage's form needs.
+size_t smem_bytes(int nf) {
+  const int floats[] = {4, 2, 0};
+  return static_cast<size_t>(floats[form_of(nf)]) * nf * sizeof(float);
+}
+
+bool bad_nf(int nf) { return nf < kTile || nf % kTile; }
 
 // Launch fn with `bytes` of dynamic shared memory (more than 48 KB needs the
 // attribute), cooperatively or not.
@@ -706,7 +791,7 @@ Params load_params(const float* params) {
 
 extern "C" {
 
-int pic_max_nf() { return kMaxNf; }
+int pic_form(int nf) { return bad_nf(nf) ? -1 : form_of(nf); }
 int pic_params_len() { return kParams; }
 int pic_threads() { return kThreads; }
 int pic_tile() { return kTile; }
@@ -714,8 +799,9 @@ int pic_tile() { return kTile; }
 // K2's grid for (stage, first, dc, m, nf): one block per kThreads markers, at
 // most the co-resident count; 0 on a bad argument or a CUDA error.
 int pic_stage_grid(int stage, int first, int dc, int m, int nf) {
-  StageFn fn = stage_fn(stage, first, dc);
-  if (fn == nullptr || bad_nf(nf) || m < 1) return 0;
+  if (bad_nf(nf) || m < 1) return 0;
+  StageFn fn = stage_fn(stage, first, dc, nf);
+  if (fn == nullptr) return 0;
   int per_sm = 0, sms = 0;
   if (resident_blocks(reinterpret_cast<const void*>(fn), smem_bytes(nf),
                       &per_sm, &sms) != cudaSuccess)
@@ -728,22 +814,27 @@ int pic_stage_grid(int stage, int first, int dc, int m, int nf) {
 // One K2 stage over m markers with n_blocks blocks (pic_stage_grid).
 // params: kParams host floats.  vpre / vpim: stage 1's velocity, stage 2 only
 // (else may be null).  partials: (n_blocks, 2, nf) device doubles.
+// scratch: (n_blocks, 2, nf) device floats where pic_form(nf) is
+// kFormGlobal, else may be null.
 int pic_stage_launch(int stage, int first, int dc, const float* params,
                      const float* fr, const float* fi, const float* eta,
                      const float* vpar, const float* vperp, const float* wre,
                      const float* wim, const float* odv, const float* ost,
                      const float* pw, const float* vpre, const float* vpim,
                      float* velre_o, float* velim_o, float* eta_o,
-                     float* wre_o, float* wim_o, double* partials, int m,
-                     int nf, int n_blocks, void* stream) {
-  StageFn fn = stage_fn(stage, first, dc);
-  if (fn == nullptr || bad_nf(nf) || m < 1 || n_blocks < 1 ||
-      (stage == 2 && (vpre == nullptr || vpim == nullptr)))
+                     float* wre_o, float* wim_o, double* partials,
+                     float* scratch, int m, int nf, int n_blocks,
+                     void* stream) {
+  if (bad_nf(nf) || m < 1 || n_blocks < 1 ||
+      (stage == 2 && (vpre == nullptr || vpim == nullptr)) ||
+      (form_of(nf) == kFormGlobal && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  StageFn fn = stage_fn(stage, first, dc, nf);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   Params P = load_params(params);
   Markers mk = {eta, vpar, vperp, wre, wim, odv, ost, pw};
   void* args[] = {&P, &fr, &fi, &mk, &vpre, &vpim, &velre_o, &velim_o,
-                  &eta_o, &wre_o, &wim_o, &partials, &m, &nf};
+                  &eta_o, &wre_o, &wim_o, &partials, &scratch, &m, &nf};
   return static_cast<int>(launch(reinterpret_cast<const void*>(fn), n_blocks,
                                  smem_bytes(nf), false, args, stream));
 }
@@ -760,21 +851,25 @@ int pic_field_launch(const double* partials, int n_part, const float* qn,
 }
 
 // K3's co-resident grid at nf: the SM count, the grid (one block a SM), the
-// dynamic shared memory (a SM's whole share), the kernel's registers and the
+// dynamic shared memory (kFormShared: a SM's whole share, so that exactly
+// one block sits on a SM; the other forms: what they need, which leaves the
+// rest of the SM's 256 KB to L1 for the field planes; 1024 threads of 58+
+// registers fit one block a SM anyway), the kernel's registers and the
 // device's cooperative-launch attribute.  grid is 0 where no block fits.
 // Returns a CUDA error code.
 int pic_mega_grid(int dc, int nf, int* sms, int* grid, int* smem,
                   int* registers, int* coop) {
   if (bad_nf(nf)) return static_cast<int>(cudaErrorInvalidValue);
-  const void* fn = mega_fn(dc);
+  const void* fn = mega_fn(dc, nf);
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(coop, cudaDevAttrCooperativeLaunch, dev);
   cudaFuncAttributes fa;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, fn);
-  size_t bytes = 0;
-  if (e == cudaSuccess) e = one_block_smem(fn, &bytes);
+  size_t bytes = smem_bytes(nf);
+  if (e == cudaSuccess && form_of(nf) == kFormShared)
+    e = one_block_smem(fn, &bytes);
   int per_sm = 0;
   if (e == cudaSuccess) e = resident_blocks(fn, bytes, &per_sm, sms);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -789,26 +884,30 @@ int pic_mega_grid(int dc, int nf, int* sms, int* grid, int* smem,
 // pic_mega_grid).  eta, wre, wim are updated in place; velre / velim: (m,)
 // scratch; carry: (3, m) scratch; partials: (grid, 2, nf) doubles; fbuf:
 // (2, 2, nf); tile_stats: (2 nf / pic_tile(), 2) doubles; stats:
-// (n_steps, 3).  The final field is in fbuf buffer (3 n_steps) % 2.
-// parts: 3 for a run (1: the marker pass, 2: the field reduce).
+// (n_steps, 3); scratch: (grid, 2, nf) floats where pic_form(nf) is
+// kFormGlobal, else may be null.  The final field is in fbuf buffer
+// (3 n_steps) % 2.  parts: 3 for a run (1: the marker pass, 2: the field
+// reduce).
 int pic_mega_launch(int dc, const float* params, const float* fr_in,
                     const float* fi_in, const float* qn, float* eta,
                     const float* vpar, const float* vperp, float* wre,
                     float* wim, const float* odv, const float* ost,
                     const float* pw, float* velre, float* velim, float* carry,
                     double* partials, float* fbuf, double* tile_stats,
-                    float* stats, int n_steps, int m, int nf, int grid,
-                    int smem, int parts, void* stream) {
+                    float* stats, float* scratch, int n_steps, int m, int nf,
+                    int grid, int smem, int parts, void* stream) {
   if (bad_nf(nf) || m < 1 || n_steps < 1 || grid < 1 ||
-      smem < static_cast<int>(smem_bytes(nf)) || parts < 0 || parts > 3)
+      smem < static_cast<int>(smem_bytes(nf)) || parts < 0 || parts > 3 ||
+      (form_of(nf) == kFormGlobal && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params P = load_params(params);
   Markers mk = {eta, vpar, vperp, wre, wim, odv, ost, pw};
   MegaState st = {eta, wre, wim, velre, velim, carry, carry + m,
                   carry + 2 * static_cast<size_t>(m)};
   void* args[] = {&P, &fr_in, &fi_in, &qn, &mk, &st, &partials, &fbuf,
-                  &tile_stats, &stats, &n_steps, &m, &nf, &parts};
-  return static_cast<int>(launch(mega_fn(dc), grid, smem, true, args, stream));
+                  &tile_stats, &stats, &scratch, &n_steps, &m, &nf, &parts};
+  return static_cast<int>(launch(mega_fn(dc, nf), grid, smem, true, args,
+                                 stream));
 }
 
 // K4: `rounds` rounds over n_blocks blocks, each on `slice` floats, with a

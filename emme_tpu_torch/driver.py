@@ -237,6 +237,14 @@ def solve_once_eigen(cfg: dict, omega_guess: complex, matrix_file=None,
     return result, omega
 
 
+def fused_pic_ok(dtype, npoints: int, markers: int) -> bool:
+    """Whether the fused PIC kernels take a run: float32, npoints % 128 ==
+    0 and markers % 1024 == 0 (``emme_tpu/driver.py``'s condition; K2 and K3
+    hold any such grid, the largest in device memory)."""
+    return dtype == torch.float32 and npoints % 128 == 0 \
+        and markers % 1024 == 0
+
+
 def solve_once_pic(cfg: dict, omega_guess: complex, matrix_file=None,
                    dtype=torch.float64, device=None, seed: int = 0,
                    mesh=None, **_):
@@ -245,8 +253,8 @@ def solve_once_pic(cfg: dict, omega_guess: complex, matrix_file=None,
     Config surface beyond the reference: ``pic_backend`` ('auto' | 'fused' |
     'xla': the fused CUDA marker kernels of ``solvers/cuda_pic.py`` against
     the plain PyTorch path, which keeps its input-schema name 'xla';
-    'fused' needs float32, npoints % 128 == 0, markers % 1024 == 0 and
-    npoints <= ``cuda_pic.MAX_NF``), ``pic_precision`` (accepted for the
+    'fused' needs float32, npoints % 128 == 0 and markers % 1024 == 0, as
+    in ``emme_tpu``; ``fused_pic_ok``), ``pic_precision`` (accepted for the
     schema; every value is exact float32 on the card), ``pic_launch``
     ('auto' | 'single' | 'stages': the whole time loop as ONE cooperative
     launch of kernel K3 against one launch of K2 per RK stage),
@@ -311,15 +319,12 @@ def solve_once_pic(cfg: dict, omega_guess: complex, matrix_file=None,
             if backend not in ("auto", "fused", "xla"):
                 raise ValueError(f"pic_backend must be auto|fused|xla, "
                                  f"got {backend!r}")
-            m = mpc * int(p.npoints)
-            fused_ok = (dtype == torch.float32
-                        and int(p.npoints) % 128 == 0 and m % 1024 == 0
-                        and int(p.npoints) <= cuda_pic.MAX_NF)
+            fused_ok = fused_pic_ok(dtype, int(p.npoints),
+                                    mpc * int(p.npoints))
             if backend == "fused" and not fused_ok:
                 raise ValueError(
-                    "pic_backend='fused' needs f32, npoints % 128 == 0, "
-                    "markers % 1024 == 0 and npoints <= "
-                    f"{cuda_pic.MAX_NF}")
+                    "pic_backend='fused' needs f32, npoints % 128 == 0 "
+                    "and markers % 1024 == 0")
             # auto never drops the buffered field dump silently; explicit
             # 'fused' trades the dump for speed (streaming runs keep the
             # plain path either way)

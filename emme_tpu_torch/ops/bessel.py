@@ -3,7 +3,9 @@ tensors.
 
 The branchless Taylor + asymptotic hybrid of ``emme_tpu/ops/bessel.py``
 (44 Taylor / 14 asymptotic terms, split at |w| = 12), accurate to ~1e-12
-relative in float64.  It returns the *scaled* pair
+relative in float64, is the production form; the masked Miller recurrence
+of the reference (``bessel_i01_scaled_miller``) is its validator.  Both
+return the *scaled* pair
 ``(I0(z)*e^{zs}, I1(z)*e^{zs}, zs)`` with ``zs = z if Re z < 0 else -z``
 (so ``|e^{zs}| <= 1``), matching how the reference consumes
 ``bessel_i_alter_helper`` in ``Parameters.cpp:135-175``: the caller folds
@@ -20,6 +22,7 @@ import torch
 _TAYLOR_TERMS = 44
 _ASYM_TERMS = 14
 _SPLIT = 12.0
+_MILLER_THRESHOLD = 2.0e7
 
 
 def asym_coeffs(nu: int, terms: int):
@@ -39,6 +42,58 @@ def _to_complex(z):
         return z
     return z.to(torch.complex128 if z.dtype == torch.float64
                 else torch.complex64)
+
+
+def bessel_i01_scaled_miller(z, forward_steps: int = 64,
+                             max_order: int = 160):
+    """Mask-vectorized Miller recurrence for scaled I0/I1, the reference's
+    ``bessel_i_alter_helper`` (functions.h:381-408) as
+    ``emme_tpu/ops/bessel.py:44`` writes it: a forward recurrence finds the
+    starting order (until |p1| exceeds the threshold), then a backward
+    recurrence with parity-signed normalization accumulates the scaled
+    values.  The loop bounds are static; lanes that finish early are
+    masked.  ``max_order`` must exceed every lane's starting order (about
+    |z| + forward_steps).  A validator of ``bessel_i01_scaled``, no
+    production path.  Returns (I0 e^{zs}, I1 e^{zs}, zs)."""
+    z = _to_complex(torch.as_tensor(z))
+    az = torch.abs(z)
+    # z == 0 (I0 = 1, I1 = 0): the recurrence divides by z
+    safe_z = torch.where(az == 0, torch.ones_like(z), z)
+    n0 = torch.floor(az) + 1.0
+    test = torch.clamp_min(torch.sqrt(
+        _MILLER_THRESHOLD * (2.0 * n0 / torch.clamp_min(az, 1e-300))),
+        _MILLER_THRESHOLD)
+
+    p0 = torch.zeros_like(z)
+    p1 = torch.ones_like(z)
+    n = n0
+    for _ in range(forward_steps):
+        active = torch.abs(p1) <= test
+        p_new = p0 - (2.0 * n / safe_z) * p1
+        p0 = torch.where(active, p1, p0)
+        p1 = torch.where(active, p_new, p1)
+        n = torch.where(active, n + 1.0, n)
+
+    y0 = 1.0 / p1
+    y1 = torch.zeros_like(z)
+    mu = torch.zeros_like(z)
+    neg_re = z.real < 0
+    for i in range(max_order - 1):
+        # k counts down max_order - 1 .. 1; a lane is active while
+        # k <= n - 1; for Re z < 0 the normalization series alternates
+        k = max_order - 1.0 - i
+        active = k <= n - 1.0
+        y_t = (2.0 * k / safe_z) * y0 + y1
+        sign = torch.where(neg_re, -1.0, 1.0).to(az.dtype) if k % 2.0 == 1.0 \
+            else 1.0
+        mu = torch.where(active, mu + 2.0 * sign * y0, mu)
+        y1 = torch.where(active, y0, y1)
+        y0 = torch.where(active, y_t, y0)
+    mu_t = mu + y0
+    zs = torch.where(neg_re, z, -z)
+    i0s = torch.where(az == 0, torch.ones_like(z), y0 / mu_t)
+    i1s = torch.where(az == 0, torch.zeros_like(z), y1 / mu_t)
+    return i0s, i1s, zs
 
 
 def bessel_i01_scaled(z):

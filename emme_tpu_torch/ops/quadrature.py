@@ -184,6 +184,15 @@ def panel_reduce(fvals, wk, wg):
     return integral, err
 
 
+def integrate_fixed(f, bounds, order: int = 15):
+    """Integrate the callable ``f`` over per-integral panel meshes
+    ``bounds`` (..., P+1).  ``f`` is applied to the whole node tensor
+    (..., P, order) in one call, so it must be vectorized.  Returns
+    ``(integral, err)`` as ``panel_reduce``."""
+    pts, wk, wg = panel_points(bounds, order)
+    return panel_reduce(f(pts), wk, wg)
+
+
 def _unit_fractions(n_panels: int, like):
     """0, 1/n, ..., 1 in ``like``'s dtype: iota / n rounded once, the values
     ``jnp.linspace(0, 1, n + 1)`` gives."""

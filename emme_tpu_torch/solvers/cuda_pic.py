@@ -29,6 +29,13 @@ kernel and its plain version compute one function.
 Markers are flat (m,) float32 structure-of-arrays (``state_to_arrs``); the
 field is two (nf,) float32 planes.  The Pallas (8, m/8) sublane view is a
 TPU layout and is not carried over.
+
+K2 and K3 take any npoints that is a multiple of 32 (``run``, as the Pallas
+path, a multiple of 128); device memory is the only other limit.  Where a
+stage keeps the field and the deposit histogram is its form, chosen by
+npoints alone (``form``): up to ``SHARED_NF`` both in shared memory (the
+small-grid build), up to ``HIST_NF`` the histogram alone, above that a
+float32 scratch row a block in device memory.
 """
 
 from __future__ import annotations
@@ -52,7 +59,11 @@ LAST_LAUNCH: str | None = None
 # the launch shape (``mega_grid``) of the last K3 launch
 LAST_MEGA_GRID: dict | None = None
 
-MAX_NF = 12288          # csrc/pic.cu kMaxNf: 4 nf floats of shared memory
+# csrc/pic.cu kFormShared / kFormHist / kFormGlobal and the largest nf of
+# the first two: 4 nf floats of shared memory (192 KB), 2 nf floats (216 KB)
+FORM_SHARED, FORM_HIST, FORM_GLOBAL = 0, 1, 2
+SHARED_NF = 12288
+HIST_NF = 27648
 # csrc/pic.cu kThreads: threads a block.  K3 runs one such block a SM, the
 # fastest of the shapes measured on an H100 (PERF.md section 6): few blocks
 # make the grid barrier and the partials cheap, and 64 registers a thread
@@ -75,6 +86,14 @@ _F32 = torch.float32
 # host side of a fused run
 # ---------------------------------------------------------------------------
 
+def form(nf: int) -> int:
+    """Where K2 and K3 keep the field and the histogram at ``nf`` grid
+    points (csrc/pic.cu form_of): ``FORM_SHARED``, ``FORM_HIST`` or
+    ``FORM_GLOBAL``."""
+    return FORM_SHARED if nf <= SHARED_NF else (
+        FORM_HIST if nf <= HIST_NF else FORM_GLOBAL)
+
+
 class FusedStep:
     """Shapes, guards and the float32 scalar block of a fused run."""
 
@@ -84,9 +103,6 @@ class FusedStep:
             raise ValueError(f"fused PIC needs npoints % 128 == 0, got {nf}")
         if m % 8 or (m // 8) % 128:
             raise ValueError(f"fused PIC needs markers % 1024 == 0, got {m}")
-        if nf > MAX_NF:
-            raise ValueError(f"fused PIC holds the field in shared memory: "
-                             f"npoints <= {MAX_NF}, got {nf}")
         self.nf = nf
         self.dc = bool(p.drift_center_transformation_switch)
         self.params = self.params_vec(p, dt)
@@ -377,23 +393,25 @@ def _library():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         pci = ctypes.POINTER(ctypes.c_int)
         sigs = {
-            "pic_max_nf": ([], ci),
+            "pic_form": ([ci], ci),
             "pic_params_len": ([], ci),
             "pic_threads": ([], ci),
             "pic_tile": ([], ci),
             "pic_stage_grid": ([ci] * 5, ci),
-            "pic_stage_launch": ([ci, ci, ci] + [vp] * 19 + [ci] * 3 + [vp],
+            "pic_stage_launch": ([ci, ci, ci] + [vp] * 20 + [ci] * 3 + [vp],
                                  ci),
             "pic_field_launch": ([vp, ci, vp, vp, vp, ci, vp], ci),
             "pic_mega_grid": ([ci] * 2 + [pci] * 5, ci),
-            "pic_mega_launch": ([ci] + [vp] * 19 + [ci] * 6 + [vp], ci),
+            "pic_mega_launch": ([ci] + [vp] * 20 + [ci] * 6 + [vp], ci),
             "grid_sync_probe_launch": ([vp, vp, vp] + [ci] * 4 + [vp], ci),
         }
         for name, (args, res) in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, res
-        if (lib.pic_max_nf(), lib.pic_params_len(), lib.pic_threads(),
-                lib.pic_tile()) != (MAX_NF, N_PARAMS, THREADS, TILE):
+        if (lib.pic_params_len(), lib.pic_threads(), lib.pic_tile()) \
+                != (N_PARAMS, THREADS, TILE) \
+                or any(lib.pic_form(nf) != form(nf) for nf in (
+                    SHARED_NF, SHARED_NF + TILE, HIST_NF, HIST_NF + TILE)):
             raise RuntimeError("csrc/pic.cu constants disagree with "
                                "cuda_pic.py")
     return lib
@@ -447,6 +465,18 @@ def _raise_on(err, what):
         raise RuntimeError(f"{what} failed: CUDA error {err}")
 
 
+def _scratch(n_blocks, nf, dev):
+    """The per-block float32 histogram rows of ``FORM_GLOBAL``, else
+    None."""
+    if form(nf) != FORM_GLOBAL:
+        return None
+    return torch.empty((n_blocks, 2, nf), dtype=_F32, device=dev)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch_stage(stage_idx, first, dc, params, fr, fi, arrs, vel_prev):
     """K2's first launch on the card: (vel_re, vel_im, eta, w_re, w_im,
     partials (n_blocks, 2, nf) float64)."""
@@ -461,15 +491,14 @@ def _launch_stage(stage_idx, first, dc, params, fr, fi, arrs, vel_prev):
         outs = [torch.empty(m, dtype=_F32, device=dev) for _ in range(5)]
         partials = torch.empty((n_blocks, 2, nf), dtype=torch.float64,
                                device=dev)
+        scratch = _scratch(n_blocks, nf, dev)
         vpre, vpim = vel_prev if vel_prev is not None else (None, None)
         err = lib.pic_stage_launch(
             stage_idx, int(first), int(dc), params.ctypes.data,
             fr.data_ptr(), fi.data_ptr(),
-            *(arrs[k].data_ptr() for k in MARKERS),
-            None if vpre is None else vpre.data_ptr(),
-            None if vpim is None else vpim.data_ptr(),
-            *(o.data_ptr() for o in outs), partials.data_ptr(), m, nf,
-            n_blocks, _stream(dev))
+            *(arrs[k].data_ptr() for k in MARKERS), _ptr(vpre), _ptr(vpim),
+            *(o.data_ptr() for o in outs), partials.data_ptr(),
+            _ptr(scratch), m, nf, n_blocks, _stream(dev))
     _raise_on(err, "pic_stage launch")
     LAUNCHES["pic_stage"] += 1
     return (*outs, partials)
@@ -495,8 +524,9 @@ def _launch_field(partials, qn):
 def mega_grid(device, nf: int, dc: bool) -> dict:
     """K3's launch shape on ``device``: {"sms", "grid" (co-resident blocks,
     one a SM; 0 where none fits), "threads", "partials" (one a block),
-    "smem" (bytes of dynamic shared memory: a SM's whole share),
-    "registers", "cooperative"}."""
+    "smem" (bytes of dynamic shared memory: a SM's whole share in
+    ``FORM_SHARED``, what the form needs in the others), "registers",
+    "cooperative", "form"}."""
     out = [ctypes.c_int() for _ in range(5)]
     with torch.cuda.device(device):
         err = _library().pic_mega_grid(int(dc), nf,
@@ -504,7 +534,8 @@ def mega_grid(device, nf: int, dc: bool) -> dict:
     _raise_on(err, "pic_mega occupancy query")
     sms, grid, smem, regs, coop = (v.value for v in out)
     return {"sms": sms, "grid": grid, "threads": THREADS, "partials": grid,
-            "smem": smem, "registers": regs, "cooperative": bool(coop)}
+            "smem": smem, "registers": regs, "cooperative": bool(coop),
+            "form": form(nf)}
 
 
 def _launch_mega(dc, params, fr, fi, qn, arrs, n_steps, parts=3):
@@ -526,6 +557,7 @@ def _launch_mega(dc, params, fr, fi, qn, arrs, n_steps, parts=3):
     tile_stats = torch.empty((2 * nf // TILE, 2), dtype=torch.float64,
                              device=dev)
     stats = torch.empty((n_steps, 3), dtype=_F32, device=dev)
+    scratch = _scratch(shape["grid"], nf, dev)
     with torch.cuda.device(dev):
         err = _library().pic_mega_launch(
             int(dc), params.ctypes.data, fr.data_ptr(), fi.data_ptr(),
@@ -534,8 +566,8 @@ def _launch_mega(dc, params, fr, fi, qn, arrs, n_steps, parts=3):
             arrs["odv"].data_ptr(), arrs["ost"].data_ptr(),
             arrs["pw"].data_ptr(), vel[0].data_ptr(), vel[1].data_ptr(),
             carry.data_ptr(), partials.data_ptr(), fbuf.data_ptr(),
-            tile_stats.data_ptr(), stats.data_ptr(), n_steps, m, nf,
-            shape["grid"], shape["smem"], parts, _stream(dev))
+            tile_stats.data_ptr(), stats.data_ptr(), _ptr(scratch), n_steps,
+            m, nf, shape["grid"], shape["smem"], parts, _stream(dev))
     _raise_on(err, f"pic_mega cooperative launch ({shape['grid']} blocks)")
     LAUNCHES["pic_mega"] += 1
     LAST_MEGA_GRID = shape

@@ -108,13 +108,30 @@ def state_from_draws(p, eta, z_para, z_perp, w0, dtype=torch.float64) -> PICStat
         field=torch.zeros(p.npoints, dtype=cdtype, device=dev))
 
 
+def _nonzero_normal(n: int, **kw):
+    """Standard normal draws none of which is exactly 0.  A v_para of 0
+    puts the drift-center phase q R / v_para at infinity and its marker's
+    deposit at NaN.  On a CUDA device torch draws float32 normals in
+    Box-Muller pairs from u = x 2^-32 + 2^-33, which rounds to 1.0 for the
+    top 128 of the 2^32 values of x: both draws of the pair are then 0,
+    once in 2^25 pairs, so a run of 16.8M markers (npoints 16,384 at 1024
+    markers a cell) holds such a pair a quarter of the time.  Zero draws
+    are drawn again, from the same generator."""
+    z = torch.randn(n, **kw)
+    zero = z == 0
+    while bool(zero.any()):
+        z[zero] = torch.randn(int(zero.sum()), **kw)
+        zero = z == 0
+    return z
+
+
 def init_state(p, marker_per_cell: int, generator: torch.Generator,
                dtype=torch.float64) -> PICState:
     """Marker loading with draws from ``generator`` (on p's device)."""
     n = marker_per_cell * p.npoints
     kw = dict(generator=generator, dtype=dtype, device=p.device)
     eta = torch.rand(n, **kw) * (2.0 * p.length) - p.length
-    z_para = torch.randn(n, **kw)
+    z_para = _nonzero_normal(n, **kw)
     z_perp = torch.randn(n, **kw)
     w0 = torch.rand(n, **kw) * 0.001
     return state_from_draws(p, eta, z_para, z_perp, w0, dtype)

@@ -37,13 +37,16 @@ ROOT = pathlib.Path(__file__).resolve().parents[2]
 KERNELS = ("kappa", "pic", "spmv")
 BRANCHES = {0: "both", 1: "taylor", 2: "asymptotic"}
 INSTR = re.compile(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_.]+)")
-# One stage's marker loop of K3, drift-center on, as a kernel of its own.
+# One stage's marker loop of K3, drift-center on, as a kernel of its own
+# (the small-grid form: field and histogram in shared memory).
 K3_STAGES = """
 #define K3_STAGE(name, STAGE, FIRST)                                       \\
   __global__ void __launch_bounds__(kThreads)                              \\
   name(Params P, Markers mk, MegaState st, int m, int nf) {                \\
     extern __shared__ float smem[];                                        \\
-    mega_markers<STAGE, FIRST, true>(P, smem, mk, st, m, nf);              \\
+    mega_markers<STAGE, FIRST, true>(                                      \\
+        P, planes<kFormShared>(smem, nullptr, nullptr, nullptr, nf), mk,   \\
+        st, m, nf);                                                        \\
   }
 K3_STAGE(k3_stage0_first, 0, true)
 K3_STAGE(k3_stage0, 0, false)

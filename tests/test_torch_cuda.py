@@ -1,6 +1,7 @@
 """The CUDA kernels on an NVIDIA GPU against their plain PyTorch versions:
-K1 and the float32 solve through it; K2, K3 and K4 (the fused PIC marker
-pass) and the fused PIC run; K5 (the BSR SpMV) and the banded solve through
+K1 and the float32 solves through it (Newton, and the shift-invert Arnoldi
+with its polish); K2, K3 and K4 (the fused PIC marker pass, in each of its
+forms) and the fused PIC run; K5 (the BSR SpMV) and the banded solve through
 it; and the driver's three kernel routes from an input dict, each against
 the same driver call on CPU tensors.  Every test here needs a card and skips
 without one.
@@ -92,6 +93,29 @@ def test_solve_f32_tok128_through_kernel(card):
     assert cuda_kappa.LAUNCHES - before == n_tiers * (2 + queued)
     assert state.M.is_cuda and vec.is_cuda
     assert abs(om - GOLDEN_TOK128) / abs(GOLDEN_TOK128) < 1e-5
+
+
+@pytest.mark.cuda
+def test_arnoldi_solve_f32_tok128_through_kernel(card):
+    """The dense shift-invert Arnoldi with its Newton polish at n=128 in
+    float32 on the card: every assembly through K1, omega within 1e-5 of
+    golden tok128, the null vector on the card; two shifts batched equal
+    their unbatched estimates to 1e-4 (float32, two LU paths)."""
+    p = et.from_config(_cfg("tokamak", 128), dtype=torch.float32, device=card)
+    before = cuda_kappa.LAUNCHES
+    om, vec, steps = arnoldi.solve(p, -0.8 + 0.25j, m_krylov=24,
+                                   newton_polish=6, tol=1e-5)
+    assert cuda_kappa.LAUNCHES > before and 1 <= steps <= 6
+    assert vec.is_cuda and vec.shape == (128,)
+    assert abs(om - GOLDEN_TOK128) / abs(GOLDEN_TOK128) < 1e-5
+    sigmas = np.array([-0.7 + 0.3j, -0.8 + 0.25j])
+    ests = arnoldi.solve_shifts_batched(p, sigmas, m_krylov=24)
+    grid = Grid.create(p.length, 128, dtype=torch.float32, device=card)
+    coeff = singularity.singularity_coeff_matrix(128, dtype=torch.float32,
+                                                 device=card)
+    for s, e in zip(sigmas, ests):
+        one, _, _ = arnoldi.solve_one_shift(p, grid, coeff, s, 24)
+        assert abs(e - one) <= 1e-4 * abs(one)
 
 
 def _pic_case(card, n, mpc, dc=True, seed=0):
@@ -265,6 +289,51 @@ def test_pic_mega_matches_plain_at_other_sizes(card, n, dc):
     k2_ref = cuda_pic.stage_ref(0, True, dc, params, *field, qn, arrs)
     for a, b in zip(k2[5:], k2_ref[5:]):
         assert _rel(a, b) < 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,form", [(16384, cuda_pic.FORM_HIST),
+                                    (32768, cuda_pic.FORM_GLOBAL)])
+def test_pic_large_grid_matches_plain(card, n, form):
+    """Past the small-grid form: npoints 16,384 (the histogram in shared
+    memory, the field from device memory) and 32,768 (a scratch row a
+    block), 64 markers per cell, dt 0.25 scaled with the cell width (at dt
+    0.25 the scheme's grid-scale mode grows past float32 at these grids,
+    the sooner the fewer markers a cell, in emme_tpu too).  K3 over 4 steps
+    against mega_ref (stats
+    1e-5, weights and field 2e-5 of scale, eta within 1 ulp), K2's stages
+    of one step against stage_ref (2e-5), eta bit-equal between two K3
+    runs and between K3 and K2 through the run entry point."""
+    p, s0 = _pic_case(card, n, 64)
+    dt = 0.25 * 1024 / n
+    shape = cuda_pic.mega_grid(card, n, True)
+    assert shape["form"] == form and shape["grid"] == shape["sms"]
+    params = cuda_pic.FusedStep.params_vec(p, dt)
+    qn = pic.quasi_neutrality_coef(p, dtype=torch.float32)
+    arrs = cuda_pic.state_to_arrs(s0)
+    field = (s0.field.real.contiguous(), s0.field.imag.contiguous())
+    got = cuda_pic.mega(True, params, *field, qn, arrs, 4)
+    again = cuda_pic.mega(True, params, *field, qn, arrs, 4)
+    ref = cuda_pic.mega_ref(True, params, *field, qn, arrs, 4)
+    assert cuda_pic.LAST_MEGA_GRID == shape
+    assert got[5].shape == (4, 3) and bool(torch.isfinite(got[5]).all())
+    assert _rel(got[5], ref[5]) < 1e-5
+    for a, b in zip(got[1:5], ref[1:5]):
+        assert _rel(a, b) < 2e-5
+    assert _within_ulp(got[0], ref[0]) and torch.equal(got[0], again[0])
+    vel_prev = None
+    for s in range(3):
+        k2 = cuda_pic.stage(s, s == 0, True, params, *field, qn, arrs,
+                            vel_prev)
+        k2_ref = cuda_pic.stage_ref(s, s == 0, True, params, *field, qn,
+                                    arrs, vel_prev)
+        for a, b in zip(k2, k2_ref):
+            assert _rel(a, b) < 2e-5
+        vel_prev = k2[:2] if s == 1 else None
+        arrs = dict(arrs, eta=k2[2], w_re=k2[3], w_im=k2[4])
+        field = k2[5:]
+    _, s_k2, _ = cuda_pic.run(p, 64, 4, dt, state=s0, launch="stages")
+    assert torch.equal(s_k2.eta, got[0])
 
 
 @pytest.mark.cuda

@@ -120,7 +120,8 @@ def test_run_from_generator(tokamak_cfg):
 
 def test_guards(tokamak_cfg):
     """What the Pallas path refuses, the port refuses (test_pallas_pic.py:
-    62-71, 103-106), plus its own shared-memory bound on npoints."""
+    62-71, 103-106), and no more: npoints 16,384, past the shared-memory
+    field of the small-grid form, is accepted."""
     _, p96 = _params(tokamak_cfg, n=96)
     with pytest.raises(ValueError, match="npoints"):
         cuda_pic.run(p96, 16, 2, 0.25)
@@ -134,9 +135,123 @@ def test_guards(tokamak_cfg):
         cuda_pic.run(pt, 8, 2, 0.25, launch="nope")
     with pytest.raises(ValueError, match="precision"):
         cuda_pic.run(pt, 8, 2, 0.25, precision="bf16")
-    _, big = _params(tokamak_cfg, n=cuda_pic.MAX_NF + 128)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_pic.run(big, 8, 2, 0.25)
+    _, big = _params(tokamak_cfg, n=16384)
+    fs = cuda_pic.FusedStep(big, 8 * 16384, 0.25)
+    assert fs.nf == 16384 and cuda_pic.form(fs.nf) == cuda_pic.FORM_HIST
+
+
+@pytest.mark.parametrize("nf,want", [
+    (128, cuda_pic.FORM_SHARED), (12288, cuda_pic.FORM_SHARED),
+    (12416, cuda_pic.FORM_HIST), (16384, cuda_pic.FORM_HIST),
+    (27648, cuda_pic.FORM_HIST), (27776, cuda_pic.FORM_GLOBAL),
+    (32768, cuda_pic.FORM_GLOBAL)])
+def test_form_is_chosen_by_npoints(nf, want):
+    """The kernels' form (where the field and the histogram live) is a
+    function of npoints alone, with the thresholds of csrc/pic.cu."""
+    assert cuda_pic.form(nf) == want
+
+
+def test_large_grid_run_matches_jax_xla(tokamak_cfg, monkeypatch):
+    """npoints 16,384 (past the small-grid form), 8 markers per cell, 2
+    steps, dt 0.25, f32, drift-center: the fused run's plain version on the
+    CPU (launch 'auto' takes mega_ref) against JAX pic.run from the same
+    markers, at the Pallas kernel's bars.
+
+    At this size a float32 run is ill-conditioned: a cell's field is the
+    small sum of ~16 weights of both signs times a coefficient of 200-370,
+    and over 131,072 markers the tails of v_para put the drift-center phase
+    at 1e5-1e6 radians.  From this key JAX's own float32 run sits 2.7e-4
+    (statistics) to 3.3e-3 (field) of scale from its float64 run and 1.4
+    from it on dc_pb, while the port and JAX part by 1.1e-3 (weights,
+    field) and 7.8e-3 (dc_pb).  So a quantity past its bar against JAX's
+    float32 run must be no further from JAX's float64 run (the same
+    markers, cast) than 1.5 times JAX's float32 run is: the port as
+    accurate as the JAX package at this size.  eta never sees the field
+    and is held to its bar alone."""
+    pj, pt = _params(tokamak_cfg, n=16384)
+    pj64 = emme_tpu.from_config(dict(tokamak_cfg, npoints=16384),
+                                dtype=jnp.float64)
+    key = jax.random.PRNGKey(3)
+    stats_j, s_j, _ = jpic.run(pj, 8, 2, 0.25, key=key)
+    s32 = jpic.init_state(pj, 8, key, dtype=jnp.float32)
+    s64 = type(s32)(**{k: jnp.asarray(v, jnp.complex128 if jnp.iscomplexobj(v)
+                                      else jnp.float64)
+                       for k, v in vars(s32).items()})
+    monkeypatch.setattr(jpic, "init_state", lambda *a, **k: s64)
+    stats_64, s_64, _ = jpic.run(pj64, 8, 2, 0.25, key=key)
+    stats, s, _ = cuda_pic.run(pt, 8, 2, 0.25, state=_start(pj, 8, key))
+    assert cuda_pic.LAST_LAUNCH == "single" and stats.shape == (2, 3)
+
+    def rel(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+
+    got = {"stats": (stats.numpy(), stats_j, stats_64)}
+    for name in BARS:
+        got[name] = tuple(np.asarray(getattr(x, name)) if x is not s
+                          else getattr(s, name).numpy()
+                          for x in (s, s_j, s_64))
+    for name, (port, j32, j64) in got.items():
+        bar = BARS.get(name, 1e-5)
+        if name == "eta":
+            assert rel(port, j32) < bar, name
+        elif rel(port, j32) >= bar:
+            assert rel(port, j64) <= 1.5 * rel(j32, j64), name
+
+
+@pytest.mark.parametrize("dt,finite", [(0.25, False), (0.0625, True)])
+def test_large_grid_growth_in_both_packages(tokamak_cfg, dt, finite):
+    """The scheme itself, in both packages, is what limits a large grid:
+    at npoints 4,096 (16 markers per cell, 40 steps) dt 0.25 lets the
+    grid-scale mode, whose growth rate goes with 1 / cell width, carry the
+    field's statistics past float32 in emme_tpu's pic.run and in the
+    port's fused run alike; dt 0.25 x 1024 / 4096 keeps both finite.  So
+    the card's large-grid checks scale dt with the cell width."""
+    pj, pt = _params(tokamak_cfg, n=4096)
+    key = jax.random.PRNGKey(1)
+    stats_j, _, _ = jpic.run(pj, 16, 40, dt, key=key)
+    stats, _, _ = cuda_pic.run(pt, 16, 40, dt, state=_start(pj, 16, key))
+    assert bool(np.isfinite(np.asarray(stats_j)).all()) == finite
+    assert bool(torch.isfinite(stats).all()) == finite
+
+
+class _Reached(Exception):
+    """Raised in place of a fused PIC run: the driver chose it."""
+
+
+def _fused_reached(solve, cfg, **kw):
+    try:
+        solve(cfg, complex(*cfg["initial_guess"]), **kw)
+    except _Reached:
+        return True
+    except ValueError as e:
+        assert "pic_backend='fused'" in str(e)
+        return False
+    raise AssertionError("the driver neither ran nor refused the fused path")
+
+
+@pytest.mark.parametrize("npoints", [16384, 16448])
+def test_driver_fused_ok_matches_jax(tokamak_cfg, monkeypatch, npoints):
+    """An input with "pic_backend": "fused" is taken or refused by the
+    port's driver exactly as by emme_tpu's (emme_tpu/driver.py:368-373):
+    npoints 16,384 runs the fused kernels, 16,448 (not a multiple of 128)
+    is refused by both."""
+    from emme_tpu import driver as jdriver
+    from emme_tpu_torch import driver as tdriver
+
+    def reached(*a, **k):
+        raise _Reached
+
+    monkeypatch.setattr(pallas_pic, "run", reached)
+    monkeypatch.setattr(cuda_pic, "run", reached)
+    cfg = dict(tokamak_cfg, npoints=npoints, method="PIC", marker_per_cell=8,
+               step_number=2, time_step=0.25, pic_backend="fused",
+               stream_fields=False)
+    jax_ok = _fused_reached(jdriver.solve_once_pic, cfg, dtype=jnp.float32)
+    port_ok = _fused_reached(tdriver.solve_once_pic, cfg,
+                             dtype=torch.float32, device="cpu")
+    assert port_ok == jax_ok == (npoints % 128 == 0)
+    assert tdriver.fused_pic_ok(torch.float32, npoints, 8 * npoints) == jax_ok
 
 
 def test_params_vec_matches_pallas(tokamak_cfg):
@@ -395,7 +510,13 @@ def test_kernel_source_matches_wrapper():
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
-    assert const("kMaxNf") == cuda_pic.MAX_NF
+    assert const("kSharedNf") == cuda_pic.SHARED_NF
+    assert const("kHistNf") == cuda_pic.HIST_NF
+    assert (const("kFormShared"), const("kFormHist"), const("kFormGlobal")) \
+        == (cuda_pic.FORM_SHARED, cuda_pic.FORM_HIST, cuda_pic.FORM_GLOBAL)
+    # the largest histogram-in-shared-memory form fits a block beside the
+    # reduce's static 8 KB (232,448 bytes a block on an H100)
+    assert 2 * cuda_pic.HIST_NF * 4 + 8192 <= const("kSmemPerBlock")
     assert const("kThreads") == cuda_pic.THREADS
     assert const("kParams") == cuda_pic.N_PARAMS
     for name in ("L", "CW", "VT", "BT", "SHAT", "ODB", "QR", "I2CW", "SUBDT",

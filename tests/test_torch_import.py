@@ -49,3 +49,32 @@ def test_no_jax_import_statement():
     pat = re.compile(r"^\s*(import jax|from jax)", re.M)
     offenders = [str(p) for p in PKG.rglob("*.py") if pat.search(p.read_text())]
     assert offenders == []
+
+
+# the public functions each slice added, by module
+ENTRY_POINTS = {
+    "emme_tpu_torch.solvers.arnoldi": (
+        "arnoldi_factorization", "ritz_from_hessenberg",
+        "shift_invert_factorization", "solve_one_shift", "solve",
+        "solve_shifts_batched"),
+    "emme_tpu_torch.ops.bessel": ("bessel_i01_scaled",
+                                  "bessel_i01_scaled_miller"),
+    "emme_tpu_torch.ops.quadrature": ("panel_points", "panel_reduce",
+                                      "integrate_fixed"),
+    "emme_tpu_torch.solvers.cuda_pic": ("form", "run", "stage", "mega"),
+    "emme_tpu_torch.driver": ("fused_pic_ok", "solve_once_pic"),
+}
+
+
+def test_entry_points_import_without_jax():
+    """Every listed function is there, callable, with jax never loaded."""
+    code = ("import importlib, sys\n"
+            f"for m, names in {ENTRY_POINTS!r}.items():\n"
+            "    mod = importlib.import_module(m)\n"
+            "    assert all(callable(getattr(mod, n)) for n in names), m\n"
+            "assert 'jax' not in sys.modules, 'jax was imported'\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=PKG.parent, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -71,6 +71,75 @@ def test_bessel_i01_scaled_matches_emme_tpu():
         assert np.all(np.abs(mine[n].numpy() - f) <= bar)
 
 
+def _sample_z(n, max_mag, seed):
+    """tests/test_bessel.py's sample: |z| log-uniform in [1e-3, max_mag],
+    every phase."""
+    rng = np.random.default_rng(seed)
+    mag = 10 ** rng.uniform(-3, np.log10(max_mag), n)
+    ang = rng.uniform(-np.pi, np.pi, n)
+    return mag * np.exp(1j * ang)
+
+
+def _relerr(a, b):
+    return np.abs(a - b) / (np.abs(b) + 1e-300)
+
+
+def test_bessel_miller_matches_emme_tpu_and_scipy():
+    """bessel_i01_scaled_miller (the reference's Miller recurrence, static
+    loop bounds 64 / 160) at tests/test_bessel.py:29-43's samples: within
+    1e-12 relative of emme_tpu's, zs exact; within 1e-7 of scipy iv times
+    exp(zs) (|z| <= 80); within 1e-6 of the fast form (|z| <= 60); I0 = 1,
+    I1 = 0 at z = 0."""
+    from scipy.special import iv
+
+    z = _sample_z(1000, 80.0, 1)
+    mine = [v.numpy() for v in bessel.bessel_i01_scaled_miller(
+        torch.tensor(z))]
+    ref = [np.asarray(v) for v in jbessel.bessel_i01_scaled_miller(
+        jnp.asarray(z))]
+    assert np.array_equal(mine[2], ref[2])
+    for n in (0, 1):
+        assert _relerr(mine[n], ref[n]).max() < 1e-12
+        assert _relerr(mine[n], iv(n, z) * np.exp(mine[2])).max() < 1e-7
+    z = _sample_z(500, 60.0, 2)
+    fast = bessel.bessel_i01_scaled(torch.tensor(z))
+    slow = bessel.bessel_i01_scaled_miller(torch.tensor(z))
+    for n in (0, 1):
+        assert _relerr(fast[n].numpy(), slow[n].numpy()).max() < 1e-6
+    i0, i1, _ = bessel.bessel_i01_scaled_miller(
+        torch.tensor([0.0 + 0.0j], dtype=torch.complex128))
+    assert i0.item() == 1.0 and i1.item() == 0.0
+
+
+def test_integrate_fixed_matches_emme_tpu():
+    """integrate_fixed at tests/test_quadrature.py:27-40's bars: a Gaussian
+    over 16 panels of [-8, 8] to 1e-13 with an embedded error under 1e-10,
+    and a decaying complex oscillation over 64 panels of [0, 50] to 1e-12;
+    each within 1e-14 of emme_tpu's value (the same nodes and weights, summed
+    in another order)."""
+    bounds = quadrature.linear_bounds(torch.tensor(-8.0, dtype=torch.float64),
+                                      torch.tensor(8.0, dtype=torch.float64),
+                                      16)
+    val, err = quadrature.integrate_fixed(lambda t: torch.exp(-t ** 2),
+                                          bounds)
+    jval, _ = jquadrature.integrate_fixed(
+        lambda t: jnp.exp(-t ** 2),
+        jquadrature.linear_bounds(jnp.array(-8.0), jnp.array(8.0), 16))
+    assert abs(val.item() - np.sqrt(np.pi)) < 1e-13 and err.item() < 1e-10
+    assert abs(val.item() - float(jval)) < 1e-14
+    bounds = quadrature.linear_bounds(torch.tensor(0.0, dtype=torch.float64),
+                                      torch.tensor(50.0, dtype=torch.float64),
+                                      64)
+    val, _ = quadrature.integrate_fixed(
+        lambda t: torch.exp((3j - 0.2) * t), bounds)
+    jval, _ = jquadrature.integrate_fixed(
+        lambda t: jnp.exp((1j * 3.0 - 0.2) * t),
+        jquadrature.linear_bounds(jnp.array(0.0), jnp.array(50.0), 64))
+    exact = (np.exp((3j - 0.2) * 50) - 1) / (3j - 0.2)
+    assert abs(val.item() - exact) < 1e-12
+    assert abs(val.item() - complex(jval)) < 1e-14
+
+
 @pytest.fixture(scope="module")
 def tok32(tokamak_cfg):
     cfg = dict(tokamak_cfg, npoints=32)

@@ -260,3 +260,27 @@ def test_calculate_omega_fft_matches_jax():
         assert pic.calculate_omega_fft(s, dt) == jpic.calculate_omega_fft(s, dt)
     assert pic.calculate_omega_fft(signed, dt).real == pytest.approx(-0.83,
                                                                      rel=5e-3)
+
+
+def test_init_state_draws_no_zero_v_para(tok64, monkeypatch):
+    """A v_para draw of exactly 0 (drift-center phase q R / v_para = inf,
+    a NaN deposit) is drawn again from the same generator: with a normal
+    draw that yields zeros twice, init_state redraws until none is left,
+    and the state is finite."""
+    _, pt = tok64
+    real_randn = torch.randn
+    calls = []
+
+    def randn(*size, **kw):
+        out = real_randn(*size, **kw)
+        calls.append(out.numel())
+        if len(calls) <= 2:
+            out[:3] = 0.0
+        return out
+
+    monkeypatch.setattr(torch, "randn", randn)
+    s = pic.init_state(pt, 4, torch.Generator().manual_seed(5))
+    assert calls[:3] == [4 * 64, 3, 3]
+    assert bool((s.v_para != 0).all())
+    assert all(bool(torch.isfinite(getattr(s, k)).all())
+               for k in ("v_para", "v_perp", "p_weight", "omega_dv"))
