@@ -166,6 +166,27 @@ check exits non-zero:
    counted, with its seconds, peak device memory and the four closest
    estimates, two of them against solve_one_shift (BATCH_BAR).  Time limit
    120 s.
+25. mesh_window_assembly: the windows of a 4-row layout of the tok8192
+   banded float32 operator (band_deta 10, block pick_block(8192 // 4) =
+   128, tiered) through sparse_eigen.assemble_bdia_window, K1 for every
+   table chunk, in this process: each window within the phase-3 bar (5e-7
+   max(scale, 1)) of the same block rows of the whole assemble_bdia
+   operator, one K1 launch a chunk (counted once a window), and K1 on the
+   window's first 2^17 table pairs held to the plain math in float64 as in
+   phase 13; each window's ms and launches beside the whole assembly's (the
+   quadrature's division over the shards, halo included).
+26. mesh_slice: the multi-device paths over NCCL, one rank a card, with
+   rows = torch.cuda.device_count(), in one spawn through
+   parallel.mesh.launch (deadline MESH_DEADLINE_S): the collectives on cuda
+   complex64 and complex128 tensors against their definitions (the edge
+   zeros of ppermute included); then through emme_tpu_torch.cli --f32 with
+   "mesh": {"rows": R}: tok8192 sparse (the SPIKE solve, band_deta 10,
+   from phase 14's seed) within 2e-5 of phase 14's dense float32 omega at
+   n=8192, its distance from phase 14's banded omega, its steps and K1
+   launches in the rank; tok1024 dense (the pair-sharded assembly) within
+   1e-5 of golden tok1024; the canonical PIC case (marker-sharded, the
+   plain step) within 5 % / 10 % of golden pic_tok1024; each with its
+   seconds beside its single-device phase's (14, 4 and 10's plain run).
 
 The kernels JSON gives every kernel its bound: the larger of the bytes it
 must move (each input read once, each output written once) over 3.35 TB/s
@@ -178,6 +199,9 @@ asymptotic, never both, weighted by the share of this run's nodes and
 markers on each side; for K3 the stage body with J0 and the phase factor
 carried in.  The static count of both sides together stands beside it as
 static_flop_per_unit and is used in no bound.
+
+K1's launches in the kernels JSON include phase 25's windows and phase
+26's ranks (their counts come back from the spawned process).
 
 The last three lines are the kernels JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -288,6 +312,14 @@ def large_dt(n):
     180-step run stays finite.  A step's work does not depend on dt."""
     return PIC_DT * N_TOK / n
 LARGE_TIME_LIMIT_S = 240
+
+
+MESH_ROWS = 4            # the window layout of mesh_window_assembly
+MESH_DEADLINE_S = 240    # mesh_slice's spawn: every rank killed past it
+
+# Single-device results the mesh phases stand beside, filled by phases 4,
+# 10 and 14.
+SINGLE = {}
 
 
 def emit(phase, **fields):
@@ -709,6 +741,7 @@ def pic_phases(torch, build_rec, card):
     stats_plain, _, _ = pic.run(p, PIC_MPC, PIC_STEPS, PIC_DT, state=s_init)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
+    SINGLE["pic_plain_seconds"] = plain_s
     om_plain = pic.calculate_omega(stats_plain, PIC_DT)
     agree = (abs(om.real - om_plain.real) / abs(om_plain.real),
              abs(om.imag - om_plain.imag) / abs(om_plain.imag))
@@ -1294,6 +1327,8 @@ def banded_phases(torch, build_rec, card):
     del sd, coeff
     rel_dense = abs(om - om_dense) / abs(om_dense)
     rel_record = abs(om - BAND_RECORD) / abs(BAND_RECORD)
+    SINGLE.update(band_omega=om, band_dense_omega=om_dense,
+                  band_seconds=solve_s)
     emit("banded_slice", case=f"tok{N_BAND} float32 banded, band_deta 10, "
          "m_krylov 16, spmv bsr", omega=[om.real, om.imag],
          dense_omega=[om_dense.real, om_dense.imag], rel_vs_dense=rel_dense,
@@ -2010,6 +2045,202 @@ def dense_arnoldi_phase(torch, card):
                     f"solve_shifts_batched 16 shifts ({batch_launches})"}
 
 
+def mesh_window_phase(torch, card):
+    """Phase 25: the windows of a MESH_ROWS-row layout of the tok8192
+    banded operator through K1, each against the whole assembly's rows;
+    returns K1's entry additions (launches, max_abs_err)."""
+    from emme_tpu_torch import from_config
+    from emme_tpu_torch.grid import Grid
+    from emme_tpu_torch.ops import cuda_kappa, kernels
+    from emme_tpu_torch.ops.singularity import singularity_coeff_band
+    from emme_tpu_torch.solvers import sparse_eigen as se
+
+    f32 = torch.float32
+    p = from_config(load_cfg("tokamak", N_BAND), dtype=f32)
+    grid = Grid.create(p.length, N_BAND, dtype=f32)
+    bs = se.pick_block(N_BAND // MESH_ROWS)
+    h = se.band_halfwidth(p, grid, bs, BAND_KW["band_deta"])
+    de_max = (h + 1) * bs - 1
+    cband = singularity_coeff_band(N_BAND, de_max, dtype=f32)
+    tiers = kernels.tier_thresholds_ij(
+        2.0 * float(p.length) / (N_BAND - 1), N_BAND)
+    seed = torch.tensor(BAND_GUESS, dtype=torch.complex64, device="cuda")
+    kw = dict(tiers=tiers, fused=True)
+    whole_ms, whole = timed(lambda: se.assemble_bdia(p, grid, cband, seed, h,
+                                                     bs, **kw), torch)
+    nbl = (N_BAND // bs) // MESH_ROWS
+    check(h <= nbl, f"half-bandwidth {h} fits a shard of {nbl} block rows")
+    scale = float(whole.data.abs().max())
+    rows, launches = [], 0
+    for s in range(MESH_ROWS):
+        i0, ncols = s * nbl * bs - de_max, nbl * bs + de_max
+        lo, hi, q = se.table_sections(None, f32, de_max, tiers)[0]
+        ea, eb = se.table_pairs(grid, lo, 0, min(K1_CHECK_PAIRS,
+                                                 (hi - lo + 1) * ncols),
+                                i0, ncols)
+        k1 = compare_f64(p, ea, eb, seed, q, torch, cuda_kappa)
+
+        def window():
+            return se.assemble_bdia_window(p, grid, cband, seed, h, bs,
+                                           s * nbl, nbl, **kw)
+
+        cuda_kappa.LAUNCHES = 0
+        win = window()
+        torch.cuda.synchronize()
+        n_launch = cuda_kappa.LAUNCHES
+        launches += n_launch
+        chunks = sum(1 for _ in se.table_pair_chunks(
+            grid, de_max, None, tiers, se.FUSED_CHUNK, i0, ncols))
+        err = float((win - whole.data[:, s * nbl:(s + 1) * nbl]).abs().max())
+        check(win.is_cuda and bool(torch.isfinite(win).all()),
+              f"window {s} finite on the card")
+        check(n_launch == chunks, f"window {s}: K1 launches {n_launch} == "
+                                  f"{chunks} table chunks")
+        check(err <= ES_BAR * max(scale, 1.0),
+              f"window {s} vs the whole operator {err:.3e} > {ES_BAR} "
+              f"max({scale:.3e}, 1)")
+        del win
+        win_ms, _ = timed(window, torch)
+        rows.append({"window": s, "block_rows": [s * nbl, (s + 1) * nbl],
+                     "table_columns": ncols, "ms": win_ms,
+                     "k1_launches": n_launch, "max_abs_err_vs_whole": err,
+                     "k1_vs_plain_max_abs_err": k1["max_abs_err"],
+                     "k1_vs_f64": k1["k1_vs_f64"],
+                     "plain_vs_f64": k1["plain_vs_f64"],
+                     "k1_check_pairs": k1["npairs"]})
+    emit("mesh_window_assembly", case=f"tok{N_BAND} float32 banded, "
+         f"band_deta {BAND_KW['band_deta']}, {MESH_ROWS} windows, block {bs}, "
+         f"h {h}", whole_ms=whole_ms, windows=rows,
+         windows_sum_ms=sum(r["ms"] for r in rows),
+         halo_columns_share=sum(r["table_columns"] for r in rows)
+         / N_BAND - 1.0, card=card)
+    return {"launches": launches,
+            "max_abs_err": max(r["k1_vs_plain_max_abs_err"] for r in rows)}
+
+
+def mesh_slice_rank(workdir, single, cli_device="auto"):
+    """One rank of phase 26 (spawned by parallel.mesh.launch, NCCL, one
+    card): the collectives, then the three mesh paths through the command
+    line (``--device cli_device``; "cpu" rehearses the phase on gloo
+    ranks); rank 0 returns what it measured."""
+    import torch
+    from emme_tpu_torch import cli
+    from emme_tpu_torch.ops import cuda_kappa
+    from emme_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_mod.make_mesh()
+    R, row, dev = mesh.n_rows, mesh.row, mesh.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    coll = {}
+    for dtype in (torch.complex64, torch.complex128):
+        xs = [(torch.arange(5) + complex(r, 1)).to(dtype) for r in range(R)]
+        x = xs[row].to(dev)
+        zero = torch.zeros(5, dtype=dtype)
+        got = {"gather": (mesh_mod.all_gather(x, mesh), torch.stack(xs)),
+               "psum": (mesh_mod.psum(x, mesh), sum(xs)),
+               "broadcast": (mesh_mod.broadcast(x, mesh), xs[0]),
+               "right": (mesh_mod.ppermute(x, mesh, +1),
+                         xs[row - 1] if row > 0 else zero),
+               "left": (mesh_mod.ppermute(x, mesh, -1),
+                        xs[row + 1] if row + 1 < R else zero)}
+        coll[str(dtype)] = {k: bool(a.device == dev and a.dtype == dtype
+                                    and torch.equal(a.cpu(), b))
+                            for k, (a, b) in got.items()}
+    jobs = {
+        "sparse": (dict(load_cfg("tokamak", N_BAND), method="eigen",
+                        eigen_backend="sparse",
+                        band_deta=BAND_KW["band_deta"],
+                        initial_guess=[BAND_GUESS.real, BAND_GUESS.imag],
+                        iteration_precision=BAND_KW["tol"])),
+        "dense": dict(load_cfg("tokamak", N_TOK), method="eigen",
+                      initial_guess=[GUESS.real, GUESS.imag],
+                      iteration_precision=SOLVE_TOL),
+        "pic": dict(load_cfg("tokamak", N_TOK), method="PIC",
+                    marker_per_cell=PIC_MPC, step_number=PIC_STEPS,
+                    time_step=PIC_DT, stream_fields=False,
+                    initial_guess=[GUESS.real, GUESS.imag]),
+    }
+    out = {"rows": R, "device": str(dev), "collectives": coll}
+    for name, cfg in jobs.items():
+        path = pathlib.Path(workdir) / f"{name}.json"
+        if row == 0:
+            path.write_text(json.dumps(dict(cfg, mesh={"rows": R})))
+        mesh_mod.psum(torch.zeros(1, device=dev), mesh)   # the file is there
+        cuda_kappa.LAUNCHES = 0
+        sync()
+        t0 = time.perf_counter()
+        cli.main([str(path), "-o", str(pathlib.Path(workdir) / name),
+                  "--f32", "--no-checkpoint", "-q", "--device", cli_device])
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = cuda_kappa.LAUNCHES
+        if row == 0:
+            doc = json.loads((pathlib.Path(workdir) / name
+                              / "output.json").read_text())
+            res = doc["result"]["(None)"]["scan_result"][0]
+            out[name] = {"seconds": seconds, "k1_launches": launches,
+                         "omega": res["eigenvalue"],
+                         "steps": res.get("iteration_steps"),
+                         "sparse_stats": res.get("sparse_stats"),
+                         "vector_len": len(res["eigenvector"]),
+                         "single_device_seconds": single[name]}
+    return out if row == 0 else None
+
+
+def mesh_slice_phase(torch, card):
+    """Phase 26: the mesh paths over NCCL with one rank a card; returns
+    K1's launches in the ranks."""
+    from emme_tpu_torch.parallel import mesh as mesh_mod
+
+    R = torch.cuda.device_count()
+    single = {"sparse": SINGLE["band_seconds"],
+              "dense": SINGLE["slice_seconds"],
+              "pic": SINGLE["pic_plain_seconds"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        got = mesh_mod.launch(mesh_slice_rank, R, "cuda", args=(tmp, single),
+                              deadline=MESH_DEADLINE_S)[0]
+        spawn_s = time.perf_counter() - t0
+    for dtype, ok in got["collectives"].items():
+        check(all(ok.values()), f"NCCL collectives on {dtype}: {ok}")
+    sp, de, pc = got["sparse"], got["dense"], got["pic"]
+    om_sp = complex(*sp["omega"])
+    rel_dense = abs(om_sp - SINGLE["band_dense_omega"]) / abs(
+        SINGLE["band_dense_omega"])
+    rel_banded = abs(om_sp - SINGLE["band_omega"]) / abs(SINGLE["band_omega"])
+    om_de = complex(*de["omega"])
+    rel_golden = abs(om_de - GOLDEN_TOK1024) / abs(GOLDEN_TOK1024)
+    om_pc = complex(*pc["omega"])
+    d_om = abs(om_pc.real - GOLDEN_PIC.real) / abs(GOLDEN_PIC.real)
+    d_gam = abs(om_pc.imag - GOLDEN_PIC.imag) / abs(GOLDEN_PIC.imag)
+    emit("mesh_slice", rows=R, device=got["device"], spawn_seconds=spawn_s,
+         collectives=got["collectives"],
+         sparse={**sp, "rel_vs_dense_f32": rel_dense,
+                 "rel_vs_banded_phase14": rel_banded},
+         dense={**de, "rel_vs_golden": rel_golden},
+         pic={**pc, "rel_vs_golden": [d_om, d_gam]}, card=card)
+    check(sp["sparse_stats"]["mesh_rows"] == R and sp["vector_len"] == N_BAND,
+          f"the sparse job ran the SPIKE solve over {R} rows")
+    check(rel_dense < BAND_BAR, f"mesh SPIKE tok{N_BAND} vs the dense float32 "
+                                f"omega {rel_dense:.3e} < {BAND_BAR}")
+    check(rel_golden < SOLVE_BAR, f"mesh dense tok{N_TOK} vs golden "
+                                  f"{rel_golden:.3e} < {SOLVE_BAR}")
+    check(d_om < 0.05 and d_gam < 0.10,
+          f"mesh PIC fit {om_pc} within 5 % / 10 % of golden {GOLDEN_PIC}")
+    check(sp["k1_launches"] > 0 and de["k1_launches"] > 0,
+          "K1 launched in the ranks")
+    return {"launches": sp["k1_launches"] + de["k1_launches"],
+            "from": f"mesh_slice over {R} rank(s): sparse tok{N_BAND} "
+                    f"({sp['k1_launches']}) + dense tok{N_TOK} "
+                    f"({de['k1_launches']})"}
+
+
 def main():
     import torch
 
@@ -2088,6 +2319,7 @@ def main():
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = cuda_kappa.LAUNCHES
+    SINGLE["slice_seconds"] = solve_s
     did, reads = dict(eigen.LAST_SOLVE), dict(eigen.HOST_READS)
     rel = abs(om - GOLDEN_TOK1024) / abs(GOLDEN_TOK1024)
     M = state.M
@@ -2133,6 +2365,8 @@ def main():
                                            k1_dense["certify_seconds"])
     k2_large, k3_large, large_launches = pic_large_grid_phase(torch, card)
     k1_arnoldi = dense_arnoldi_phase(torch, card)
+    k1_windows = mesh_window_phase(torch, card)
+    k1_mesh = mesh_slice_phase(torch, card)
 
     k1_bound = bound(sum(r["bytes"] for r in rows),
                      sum(r["flop"] for r in rows))
@@ -2144,13 +2378,16 @@ def main():
         "source": "emme_tpu_torch/csrc/kappa.cu",
         "replaces": "emme_tpu/ops/pallas_kappa.py:241",
         "launches": launches + k1_dense["launches"] + k1_banded["launches"]
-        + k1_arnoldi["launches"],
+        + k1_arnoldi["launches"] + k1_windows["launches"]
+        + k1_mesh["launches"],
         "launches_from": f"eigen.solve tok{N_TOK} ({launches}) + host64 "
                          f"({k1_dense['certify_launches']}) + stel{N_TOK} "
                          f"host64 ({k1_dense['stel_launches']}) + "
                          f"sparse_eigen.solve tok{N_BAND} "
                          f"({k1_banded['launches']}) + "
-                         f"{k1_arnoldi['from']}",
+                         f"{k1_arnoldi['from']} + assemble_bdia_window "
+                         f"tok{N_BAND}, {MESH_ROWS} windows "
+                         f"({k1_windows['launches']}) + {k1_mesh['from']}",
         "max_abs_err": max([r["max_abs_err"] for r in rows]
                            + [r_em["max_abs_err"], k1_dense["max_abs_err"],
                               k1_banded["max_abs_err"]]),

@@ -48,11 +48,13 @@ def main(argv=None):
                          "the continuation seed then lags up to that many "
                          "points")
     ap.add_argument("--mesh-rows", type=int, default=None,
-                    help="multi-device 'rows' mesh of the JAX package; not "
-                         "ported: the driver raises")
+                    help="distribute every solve over this many ranks "
+                         "(one card a rank over NCCL; gloo processes with "
+                         "--device cpu)")
     ap.add_argument("--mesh-scan", type=int, default=None,
-                    help="multi-device rows x scan topology of the JAX "
-                         "package; not ported: the driver raises")
+                    help="rows x scan topology: this many groups of "
+                         "--mesh-rows ranks solve scan points or shifts "
+                         "concurrently")
     ap.add_argument("--debug", action="store_true",
                     help="EMME_DEBUG analogue: input dimension/positivity "
                          "validation + finiteness checks of every result")

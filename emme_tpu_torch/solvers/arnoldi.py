@@ -17,7 +17,8 @@ kernel K1 for float32 and the torch integrand for float64 (the rule of
 embedding is a TPU form and stays behind) and runs Arnoldi on B.
 ``solve`` polishes the estimate with Newton trace-secant steps;
 ``solve_shifts_batched`` takes many shifts with one batched LU and one
-batched Arnoldi sweep, O(shifts n^2) memory as in the reference.
+batched Arnoldi sweep, O(shifts n^2) memory as in the reference, and over a
+mesh splits the shifts over its ``scan`` axis.
 """
 
 from __future__ import annotations
@@ -29,13 +30,8 @@ from ..grid import Grid
 from ..ops import kernels
 from ..ops.singularity import singularity_coeff_matrix
 from ..params import default_device
+from ..parallel import mesh as mesh_mod
 from . import eigen
-
-# The multi-device layer (item 17 of ROADMAP.md) is not ported.
-_NO_MESH = ("solve_shifts_batched(mesh=...): the multi-device layer "
-            "(emme_tpu/parallel/) is not ported yet (ROADMAP.md, item 17); "
-            "the shifts run batched on one device with mesh=None")
-
 
 def arnoldi_factorization(solve_B, n: int, m_krylov: int,
                           dtype=torch.complex128, device=None,
@@ -174,17 +170,10 @@ def solve(p, sigma, m_krylov: int = 24, newton_polish: int = 3,
     return complex(re, im), eigen.null_space(state.M), steps
 
 
-def solve_shifts_batched(p, sigmas, m_krylov: int = 24, quad=None,
-                         chunk: int = 2048, mesh=None, dtype=None):
-    """Multi-shift Arnoldi: M(sigma) and M'(sigma) for every shift filled
-    into (S, n, n) tensors, one batched LU, one batched Arnoldi sweep, one
-    read of the S Hessenbergs.  Returns the S omega estimates (numpy).  ``mesh``
-    (the shift axis over devices) is the multi-device layer, not ported:
-    it raises ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
-    grid, coeff = _grid_coeff(p, dtype)
-    sigmas = np.asarray(sigmas, dtype=np.complex128).reshape(-1)
+def _batched_hessenbergs(p, grid, coeff, sigmas, m_krylov, quad, chunk):
+    """M(sigma) and M'(sigma) for every shift filled into (S, n, n)
+    tensors, one batched LU, one batched Arnoldi sweep: the (S, m+1, m)
+    Hessenbergs on the device."""
     M = dM = None
     for k, s in enumerate(sigmas):
         m, d = _secant_pair(p, grid, coeff, _shift(s, grid), quad, chunk, 0.01)
@@ -195,6 +184,35 @@ def solve_shifts_batched(p, sigmas, m_krylov: int = 24, quad=None,
     solve_B, _ = _lu_solver(M, dM)
     _, H = arnoldi_factorization(solve_B, M.shape[-1], m_krylov, M.dtype,
                                  M.device, batch=(len(sigmas),))
+    return H
+
+
+def solve_shifts_batched(p, sigmas, m_krylov: int = 24, quad=None,
+                         chunk: int = 2048, mesh=None, dtype=None):
+    """Multi-shift Arnoldi: one batched LU and one batched Arnoldi sweep
+    over the shifts, one read of their Hessenbergs.  Returns the omega
+    estimates in shift order (numpy).  With ``mesh`` (a
+    ``parallel.mesh.Mesh``, called in every rank) the shifts split over its
+    ``scan`` axis -- their number must divide by its size -- each rank
+    batches its share, and the Hessenbergs are all-gathered, so every rank
+    returns every estimate."""
+    grid, coeff = _grid_coeff(p, dtype)
+    sigmas = np.asarray(sigmas, dtype=np.complex128).reshape(-1)
+    if mesh is None:
+        H = _batched_hessenbergs(p, grid, coeff, sigmas, m_krylov, quad,
+                                 chunk)
+    else:
+        if not isinstance(mesh, mesh_mod.Mesh):
+            raise TypeError(f"mesh must be an emme_tpu_torch.parallel.mesh."
+                            f"Mesh, got {type(mesh).__name__}")
+        n_scan = mesh.n_scan
+        if len(sigmas) % n_scan:
+            raise ValueError(f"{len(sigmas)} shifts do not divide over the "
+                             f"scan axis of {n_scan}")
+        k = len(sigmas) // n_scan
+        H = mesh_mod.all_gather(_batched_hessenbergs(
+            p, grid, coeff, sigmas[mesh.scan * k:(mesh.scan + 1) * k],
+            m_krylov, quad, chunk), mesh, axis="scan", tiled=True)
     H = H.cpu().numpy()
     return np.array([ritz_from_hessenberg(H[k], s, m_krylov)[0][0]
                      for k, s in enumerate(sigmas)])

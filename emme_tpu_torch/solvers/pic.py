@@ -205,9 +205,14 @@ def deposit(den, idx, w, nf, method: str | None = None):
             + zero.index_add(0, i1, den * w))
 
 
-def solve_field(p, s: PICState, qn_coef, deposit_method: str | None = None):
+def solve_field(p, s: PICState, qn_coef, deposit_method: str | None = None,
+                density_reduce=None):
     """Charge deposition + quasi-neutrality solve (solver_pic.h:249-354).
-    Also refreshes j0 and the drift-center pull-back as the reference does."""
+    Also refreshes j0 and the drift-center pull-back as the reference does.
+
+    ``density_reduce``: a callable applied to the deposited density before
+    the solve (the sum over the ranks when the markers are sharded,
+    ``parallel/sharded.py``)."""
     nf = p.npoints
     x_perp = s.v_perp / p.vt
     sb = torch.sqrt(p.b_theta * (1.0 + (p.shat * s.eta) ** 2))
@@ -217,18 +222,20 @@ def solve_field(p, s: PICState, qn_coef, deposit_method: str | None = None):
     den = (j0 * s.weight * dc_pb if p.drift_center_transformation_switch
            else j0 * s.weight)
     idx, w = _locate(p, s.eta)
-    field = deposit(den, idx, w, nf, method=deposit_method) * qn_coef
-    return replace(s, j0=j0, dc_pb=dc_pb, field=field)
+    d = deposit(den, idx, w, nf, method=deposit_method)
+    if density_reduce is not None:
+        d = density_reduce(d)
+    return replace(s, j0=j0, dc_pb=dc_pb, field=d * qn_coef)
 
 
 def update(p, s: PICState, velocity, dt, qn_coef,
-           deposit_method: str | None = None):
+           deposit_method: str | None = None, density_reduce=None):
     """Push eta (periodic bound to [-L, L)), advance weights, re-solve field
     (solver_pic.h:142-156, 393-396)."""
     eta = s.eta + s.v_para * dt / (p.q * p.R)
     eta = torch.remainder(eta + p.length, 2.0 * p.length) - p.length
     s = replace(s, eta=eta, weight=s.weight + velocity * dt)
-    return solve_field(p, s, qn_coef, deposit_method)
+    return solve_field(p, s, qn_coef, deposit_method, density_reduce)
 
 
 def _combo(row, vs):
@@ -259,13 +266,14 @@ def rk3_error_estimate(v, dt, norm_fn):
 
 
 def rk3_step(p, s: PICState, dt, qn_coef, gather_method: str | None = None,
-             deposit_method: str | None = None):
-    """PIC instantiation of the 3-stage scheme."""
+             deposit_method: str | None = None, density_reduce=None):
+    """PIC instantiation of the 3-stage scheme; ``density_reduce`` as in
+    ``solve_field``."""
     return rk3_generic(
         s,
         lambda st: put_velocity(p, st, gather_method),
         lambda st, vel, sub_dt: update(p, st, vel, sub_dt, qn_coef,
-                                       deposit_method),
+                                       deposit_method, density_reduce),
         dt)
 
 
@@ -290,16 +298,19 @@ def initial_state(p, marker_per_cell: int, generator=None,
 
 def run(p, marker_per_cell: int, n_steps: int, dt, generator=None,
         state: PICState | None = None, record_fields: bool = False,
-        gather_method: str | None = None, deposit_method: str | None = None):
+        gather_method: str | None = None, deposit_method: str | None = None,
+        density_reduce=None):
     """Full PIC run.  Starts from ``state`` when given, else from
     ``init_state`` with ``generator`` (seed 0 on p's device by default).
-    Returns (stats (n_steps, 3), final state, the per-step fields
-    (n_steps, nf) when ``record_fields`` else None)."""
+    ``density_reduce`` as in ``solve_field``.  Returns (stats (n_steps,
+    3), final state, the per-step fields (n_steps, nf) when
+    ``record_fields`` else None)."""
     s = initial_state(p, marker_per_cell, generator, state)
     qn_coef = quasi_neutrality_coef(p, dtype=p.dtype)
     stats, fields = [], []
     for _ in range(n_steps):
-        s, _v = rk3_step(p, s, dt, qn_coef, gather_method, deposit_method)
+        s, _v = rk3_step(p, s, dt, qn_coef, gather_method, deposit_method,
+                         density_reduce)
         stats.append(field_stats(s.field))
         if record_fields:
             fields.append(s.field)
@@ -316,7 +327,7 @@ def _fields_to_file(fields, f):
 def run_streaming(p, marker_per_cell: int, n_steps: int, dt, stream_path,
                   generator=None, state: PICState | None = None,
                   chunk_steps: int = 16, gather_method: str | None = None,
-                  deposit_method: str | None = None):
+                  deposit_method: str | None = None, density_reduce=None):
     """``run`` with the per-step field dumps STREAMED to disk during the run
     (the reference writes each step's field before the next one starts,
     main.cpp:105-110, so a killed run keeps its field history; the buffered
@@ -334,7 +345,8 @@ def run_streaming(p, marker_per_cell: int, n_steps: int, dt, stream_path,
     stats, fields = [], []
     with open(stream_path, "wb") as f:
         for k in range(n_steps):
-            s, _v = rk3_step(p, s, dt, qn_coef, gather_method, deposit_method)
+            s, _v = rk3_step(p, s, dt, qn_coef, gather_method, deposit_method,
+                             density_reduce)
             stats.append(field_stats(s.field))
             fields.append(s.field)
             if len(fields) == chunk_steps or k == n_steps - 1:
@@ -346,7 +358,8 @@ def run_streaming(p, marker_per_cell: int, n_steps: int, dt, stream_path,
 
 
 def run_timed(p, marker_per_cell: int, n_steps: int, dt, generator=None,
-              state: PICState | None = None, record_fields: bool = False):
+              state: PICState | None = None, record_fields: bool = False,
+              density_reduce=None):
     """Observability variant of ``run``: the step loop with the reference's
     per-phase timer sections ("Initial", "Particle Pushing", "Field Solve",
     "Diagnostics"; solver_pic.h:127-155).  On a card every section ends
@@ -372,7 +385,7 @@ def run_timed(p, marker_per_cell: int, n_steps: int, dt, generator=None,
                             + _combo(RK_COEF[stage], v) * sub_dt)
                 sync(s.weight)
             with section("Field Solve"):
-                s = solve_field(p, s, qn_coef)
+                s = solve_field(p, s, qn_coef, density_reduce=density_reduce)
                 sync(s.field)
         with section("Diagnostics"):
             stats.append(field_stats(s.field))

@@ -29,9 +29,11 @@ set of stop rules for both): driven from the host with one flag read a step
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import time
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import partial
 from typing import Any
 
@@ -42,6 +44,7 @@ from ..grid import Grid
 from ..ops import banded, cuda_kappa, kernels
 from ..ops.singularity import SINGULAR_BAND_HALF_WIDTH, singularity_coeff_band
 from ..ops.sparse import BDIAOperator, bdia_matvec, pick_spmv
+from ..params import DYNAMIC_FIELDS
 from ..utils.timer import sync
 from . import eigen
 from .arnoldi import arnoldi_factorization, ritz_from_hessenberg
@@ -130,44 +133,55 @@ def table_sections(quad, rdtype, de_max: int, tiers):
     return sections
 
 
-def table_pairs(grid: Grid, lo_de: int, start: int, stop: int):
+def table_pairs(grid: Grid, lo_de: int, start: int, stop: int, i0: int = 0,
+                ncols: int | None = None):
     """(eta_a, eta_b) of flat pairs [start, stop) of a table section whose
-    first row is de = lo_de, row by row: pair (de, i) is (eta_i,
-    eta_{i+de}); past the right edge it is a dummy finite pair (eta_i,
-    eta_i + dx), never read by the assembly."""
+    first row is de = lo_de, row by row over the columns i = i0 .. i0 +
+    ncols - 1 (default: all n): pair (de, i) is (eta_i, eta_{i+de}); where
+    i < 0 or i + de > n - 1 it is a dummy finite pair (eta_i clamped,
+    + dx), never read by the assembly."""
     n = grid.npoints
+    nc = n if ncols is None else ncols
     eta = grid.eta
     f = torch.arange(start, stop, device=eta.device)
-    i = f % n
-    j = i + lo_de + f // n
-    ea = eta[i]
-    return ea, torch.where(j <= n - 1, eta[j.clamp(max=n - 1)], ea + grid.dx)
+    i = f % nc + i0
+    j = i + lo_de + f // nc
+    ea = eta[i.clamp(0, n - 1)]
+    valid = (i >= 0) & (j <= n - 1)
+    return ea, torch.where(valid, eta[j.clamp(0, n - 1)], ea + grid.dx)
 
 
-def table_pair_chunks(grid: Grid, de_max: int, quad, tiers, chunk: int):
-    """Yield (eta_a, eta_b, quad) for the padded (de, i) kernel table,
-    section by section, ``chunk`` pairs at a time."""
-    n = grid.npoints
+def table_pair_chunks(grid: Grid, de_max: int, quad, tiers, chunk: int,
+                      i0: int = 0, ncols: int | None = None):
+    """Yield (eta_a, eta_b, quad) for the padded (de, i) kernel table over
+    the columns i0 .. i0 + ncols - 1 (default: all n), section by section,
+    ``chunk`` pairs at a time."""
+    nc = grid.npoints if ncols is None else ncols
     for lo_de, hi_de, q in table_sections(quad, grid.eta.dtype, de_max,
                                           tiers):
-        npairs = (hi_de - lo_de + 1) * n
+        npairs = (hi_de - lo_de + 1) * nc
         for s in range(0, npairs, chunk):
-            yield (*table_pairs(grid, lo_de, s, min(s + chunk, npairs)), q)
+            yield (*table_pairs(grid, lo_de, s, min(s + chunk, npairs),
+                                i0, ncols), q)
 
 
 def _kernel_table(p, grid, omega, de_max: int, ms, quad, chunk, tiers,
-                  electron: bool = False, fused: bool = False):
+                  electron: bool = False, fused: bool = False, i0: int = 0,
+                  ncols: int | None = None):
     """Ordered-pair kernel table over the padded (de, i) grid: row de - 1
-    holds kappa(eta_i, eta_{i+de}) for i = 0..n-1 (entries with i + de >= n
-    hold a dummy pair and must not be read).  Returns one complex
-    (de_max, n) tensor per m in ``ms``; float32 chunks go through K1 when
-    ``fused``."""
-    n = grid.npoints
+    holds kappa(eta_i, eta_{i+de}) for i = i0 .. i0 + ncols - 1 (default:
+    0 .. n - 1; entries with i < 0 or i + de >= n hold a dummy pair and
+    must not be read).  Returns one complex (de_max, ncols) tensor per m in
+    ``ms``; float32 chunks go through K1 when ``fused``.  ``i0`` and
+    ``ncols`` serve the window assembly of the mesh-sharded solve: a shard
+    computes only the columns of its own block rows and the de_max halo."""
+    nc = grid.npoints if ncols is None else ncols
     cdtype = kernels.complex_dtype(grid.eta.dtype)
-    out = [torch.empty(de_max * n, dtype=cdtype, device=grid.eta.device)
+    out = [torch.empty(de_max * nc, dtype=cdtype, device=grid.eta.device)
            for _ in ms]
     o = 0
-    for a, b, q in table_pair_chunks(grid, de_max, quad, tiers, chunk):
+    for a, b, q in table_pair_chunks(grid, de_max, quad, tiers, chunk, i0,
+                                     ncols):
         if fused:
             vals = cuda_kappa.kappa_pairs_fused(p, a, b, omega, ms=ms, quad=q)
         else:
@@ -179,7 +193,7 @@ def _kernel_table(p, grid, omega, de_max: int, ms, quad, chunk, tiers,
         for t, v in zip(out, vals):
             t[o:o + a.shape[0]] = v
         o += a.shape[0]
-    return [t.reshape(de_max, n) for t in out]
+    return [t.reshape(de_max, nc) for t in out]
 
 
 def _flat_table(T, n):
@@ -316,6 +330,77 @@ def _assemble_bdia_em(p, grid: Grid, coeff_band, omega, h: int, block: int,
         pos_blocks.append(_pad_rows(v, d))
     return BDIAOperator(data=_mirror(pos_blocks, nb),
                         offsets=tuple(range(-h, h + 1)), n=dim, block=bs)
+
+
+def assemble_bdia_window(p, grid: Grid, coeff_band, omega, h: int,
+                         block: int, row0: int, nbl: int, quad=None,
+                         chunk: int | None = None, tiers=None,
+                         fused: bool = False):
+    """Block rows [row0, row0 + nbl) of the global BDIA operator, all 2h+1
+    diagonals built directly (no transpose mirroring; the blocks that cross
+    into a neighbouring window are included -- the SPIKE path masks and
+    extracts them itself).  Electrostatic or electromagnetic (interleaved
+    ordering, as ``_assemble_bdia_em``).
+
+    The kernel table covers only the window's columns [row0 bs - de_max,
+    (row0 + nbl) bs) (element rows for an electromagnetic operator), so the
+    quadrature -- the dominant cost -- divides over the shards, halo
+    included.  float32 tables go through K1 when ``fused``; ``chunk``
+    defaults as in ``assemble_bdia``.  Returns complex (2h+1, nbl, bs, bs),
+    the layout of ``BDIAOperator.data`` rows."""
+    if chunk is None:
+        chunk = FUSED_CHUNK if fused else PLAIN_CHUNK
+    n = grid.npoints
+    bs = block
+    dev = grid.eta.device
+    rdtype = grid.eta.dtype
+    em = bool(p.electromagnetic)
+    dim = 2 * n if em else n
+    de_max = em_de_max(n, h, bs) if em else min((h + 1) * bs - 1, n - 1)
+    el0 = (row0 * bs) // 2 if em else row0 * bs     # first element row
+    nel = (nbl * bs) // 2 if em else nbl * bs       # element rows in window
+    i0 = el0 - de_max
+    ncols = nel + de_max
+    ms = (0, 1, 2) if em else (0,)
+    T = [_flat_table(t, ncols) for t in _kernel_table(
+        p, grid, omega, de_max, ms, quad, chunk, tiers, electron=em,
+        fused=fused, i0=i0, ncols=ncols)]
+    coeff_flat = coeff_band.reshape(-1)
+    ncol = coeff_band.shape[1]
+    cw = ncol // 2
+    diag_phi = (1.0 + 1.0 / p.tau).to(rdtype)
+    if em:
+        diag_A = ((2.0 * p.tau) / p.beta_e * p.bi(grid.eta)).to(rdtype)
+
+    blocks = []
+    for d in range(-h, h + 1):
+        r_idx, c_idx = _block_index(nbl, bs, d, dev)
+        r_idx, c_idx = r_idx + row0 * bs, c_idx + row0 * bs
+        ii, jj = (r_idx // 2, c_idx // 2) if em else (r_idx, c_idx)
+        de = jj - ii
+        adiff = de.abs()
+        lo = torch.minimum(ii, jj).clamp(max(i0, 0), i0 + ncols - 1)
+        valid = (c_idx >= 0) & (c_idx < dim)
+        pos = adiff.clamp(max=de_max) * ncols + (lo - i0)
+        cvals = coeff_flat[lo * ncol + adiff.clamp(max=cw) + cw]
+        if not em:
+            v = -T[0][pos] * cvals
+        else:
+            sgn = torch.sign(de).to(rdtype)
+            even_r = r_idx % 2 == 0
+            usign = torch.where(even_r, sgn, -sgn)
+            phiphi = even_r & (c_idx % 2 == 0)
+            AA = ~even_r & (c_idx % 2 == 1)
+            v = torch.where(phiphi, -T[0][pos] * cvals,
+                            torch.where(AA, T[2][pos], usign * T[1][pos]))
+        v = torch.where(valid, v * grid.dx, torch.zeros_like(v))
+        if d == 0:
+            dvals = (torch.where(even_r, diag_phi, diag_A[ii.clamp(0, n - 1)])
+                     if em else diag_phi.expand(r_idx.shape))
+            v = torch.where(r_idx == c_idx,
+                            torch.complex(dvals, torch.zeros_like(dvals)), v)
+        blocks.append(v)
+    return torch.stack(blocks)
 
 
 def deinterleave(vec):
@@ -485,26 +570,60 @@ def host64_polish_banded(p, grid, coeff_band, state: SparseEigenState,
     return omega, v, steps
 
 
+def _params_on(p, device):
+    """``p`` with its scalars on ``device``."""
+    if p.length.device == device:
+        return p
+    return replace(p, **{f: getattr(p, f).to(device) for f in DYNAMIC_FIELDS})
+
+
 def solve_shifts(p, sigmas, tol: float | None = None, m_krylov: int = 16,
-                 **kw):
+                 workers: int = 1, **kw):
     """Banded multi-shift eigensolve: for every shift run ``solve`` (the
-    shift-invert Arnoldi stage + the banded Newton polish), in order on the
-    parameters' device.  Returns a list of (omega, vector, steps) in sigma
-    order; a shift that fails with any ``Exception`` (a ``KeyError`` from a
-    tier spec that ``kernels.scaled_quad`` does not know included) yields
-    (nan, None, 0) after a warning naming the shift and the exception, and
-    the sweep goes on, as in the JAX package."""
-    out = []
-    for sig in (complex(s) for s in np.asarray(sigmas)):
-        try:
-            om, vec, steps, _ = solve(p, sig, tol=tol, m_krylov=m_krylov,
-                                      **kw)
-            out.append((om, vec, steps))
-        except Exception as e:  # per-shift fault tolerance
-            warnings.warn(f"solve_shifts: shift {sig} failed: "
-                          f"{type(e).__name__}: {e}")
-            out.append((complex(float("nan"), float("nan")), None, 0))
-    return out
+    shift-invert Arnoldi stage + the banded Newton polish).  Returns a list
+    of (omega, vector, steps) in sigma order; a shift that fails with any
+    ``Exception`` (a ``KeyError`` from a tier spec that
+    ``kernels.scaled_quad`` does not know included) yields (nan, None, 0)
+    after a warning naming the shift and the exception, and the sweep goes
+    on, as in the JAX package.
+
+    ``workers > 1`` solves that many shifts at once in threads.  On a CUDA
+    device worker i takes card i % device_count (the parameters copied
+    there) and a stream of its own, so with one card the workers share it;
+    on the CPU they share the host's threads.  Each vector stays on its
+    worker's device."""
+    cuda = p.length.device.type == "cuda"
+
+    def one(item):
+        i, sig = item
+        ctx = contextlib.nullcontext()
+        pw, stream = p, None
+        if cuda and workers > 1:
+            dev = torch.device("cuda", i % torch.cuda.device_count())
+            stream = torch.cuda.Stream(device=dev)
+            stream.wait_stream(torch.cuda.default_stream(p.length.device))
+            ctx = contextlib.ExitStack()
+            ctx.enter_context(torch.cuda.device(dev))
+            ctx.enter_context(torch.cuda.stream(stream))
+            pw = _params_on(p, dev)
+        with ctx:
+            try:
+                om, vec, steps, _ = solve(pw, sig, tol=tol,
+                                          m_krylov=m_krylov, **kw)
+                out = (om, vec, steps)
+            except Exception as e:  # per-shift fault tolerance
+                warnings.warn(f"solve_shifts: shift {sig} failed: "
+                              f"{type(e).__name__}: {e}")
+                out = (complex(float("nan"), float("nan")), None, 0)
+        if stream is not None:
+            stream.synchronize()
+        return out
+
+    items = list(enumerate(complex(s) for s in np.asarray(sigmas)))
+    if workers <= 1:
+        return [one(it) for it in items]
+    with concurrent.futures.ThreadPoolExecutor(workers) as ex:
+        return list(ex.map(one, items))
 
 
 def spmv_rate(op: BDIAOperator, spmv: str | None = None,

@@ -155,8 +155,9 @@ def test_batched_shifts_equal_unbatched(tok32, golden):
 
 
 def test_mesh_raises(tok32):
-    """The shift axis over a device mesh is the multi-device layer, not
-    ported: mesh= raises and names ROADMAP item 17."""
+    """mesh= takes a parallel.mesh.Mesh (the shift axis over its scan
+    groups, tests/test_torch_mesh_sparse.py); anything else raises a
+    TypeError naming the type it wants."""
     _, pt, _, _ = tok32
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         arnoldi.solve_shifts_batched(pt, [SIGMA], mesh=object())

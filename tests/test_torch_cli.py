@@ -71,10 +71,15 @@ def test_cli_passes_flags_on(tmp_path, monkeypatch):
 
 
 def test_cli_mesh_flags_show_the_drivers_error(tmp_path, tokamak_cfg):
-    with pytest.raises(NotImplementedError, match="item 17"):
-        cli.main([_input(tmp_path, dict(tokamak_cfg, npoints=32)),
-                  "-o", str(tmp_path), "--device", "cpu", "-q",
-                  "--mesh-rows", "2"])
+    """--mesh-rows reaches the driver's mesh checks: scan workers without a
+    scan axis, and a scan axis without rows, raise the driver's errors."""
+    path = _input(tmp_path, dict(tokamak_cfg, npoints=32))
+    with pytest.raises(ValueError, match="explicit scan axis"):
+        cli.main([path, "-o", str(tmp_path), "--device", "cpu", "-q",
+                  "--mesh-rows", "2", "--scan-workers", "2"])
+    with pytest.raises(ValueError, match="needs mesh rows"):
+        cli.main([path, "-o", str(tmp_path), "--device", "cpu", "-q",
+                  "--mesh-scan", "2"])
 
 
 @pytest.mark.parametrize("device", ["auto", "cuda"])

@@ -1,9 +1,11 @@
 """The CUDA kernels on an NVIDIA GPU against their plain PyTorch versions:
-K1 and the float32 solves through it (Newton, and the shift-invert Arnoldi
-with its polish); K2, K3 and K4 (the fused PIC marker pass, in each of its
+K1 and the float32 solves through it (Newton, the shift-invert Arnoldi
+with its polish, and K1 at the window shape of the mesh-sharded banded
+assembly); K2, K3 and K4 (the fused PIC marker pass, in each of its
 forms) and the fused PIC run; K5 (the BSR SpMV) and the banded solve through
-it; and the driver's three kernel routes from an input dict, each against
-the same driver call on CPU tensors.  Every test here needs a card and skips
+it; the driver's three kernel routes from an input dict, each against
+the same driver call on CPU tensors; and a one-rank NCCL mesh solve against
+the single-device solve.  Every test here needs a card and skips
 without one.
 
 This file imports torch, numpy and the port only, so it also runs on a
@@ -23,6 +25,7 @@ from emme_tpu_torch import convert, driver
 from emme_tpu_torch.grid import Grid
 from emme_tpu_torch.ops import (cuda_kappa, cuda_spmv, kernels, singularity,
                                 sparse)
+from emme_tpu_torch.parallel import mesh as mesh_mod
 from emme_tpu_torch.solvers import (arnoldi, cuda_pic, eigen, pic,
                                     sparse_eigen)
 
@@ -640,3 +643,76 @@ def test_driver_sparse_tok128_through_k5(card, tmp_path):
                                / "eigenMatrix.bin")
     assert op.data.is_cuda and op.n == 128
     assert op.nnz == on_card["sparse_stats"]["nnz"]
+
+
+@pytest.mark.cuda
+def test_k1_window_matches_plain(card):
+    """K1 at the window shape of a 4-row layout (tok256 float32, tiered,
+    band_deta 10): on each window's first 2^15 table pairs (the near tier,
+    where the plain float32 version is the less accurate side) K1 within
+    5e-7 max(scale, 1) of the plain math in float64 on the same inputs, or
+    no further from it than the plain float32 version (chip_smoke.py phase
+    13's rule); each window, one K1 launch a table chunk, within 1e-6 of
+    scale of the same block rows of the single-device assemble_bdia
+    through K1."""
+    n, S = 256, 4
+    p = et.from_config(_cfg("tokamak", n), dtype=torch.float32, device=card)
+    grid = Grid.create(p.length, n, dtype=torch.float32, device=card)
+    bs = sparse_eigen.pick_block(n // S)
+    h = sparse_eigen.band_halfwidth(p, grid, bs, 10.0)
+    de_max = (h + 1) * bs - 1
+    cb = singularity.singularity_coeff_band(n, de_max, dtype=torch.float32,
+                                            device=card)
+    tiers = kernels.tier_thresholds_ij(2.0 * float(p.length) / (n - 1), n)
+    om = torch.tensor(-0.8 + 0.25j, dtype=torch.complex64, device=card)
+    whole = sparse_eigen.assemble_bdia(p, grid, cb, om, h, bs, tiers=tiers,
+                                       fused=True).data
+    nbl = (n // bs) // S
+    scale = float(whole.abs().max())
+    for s in range(S):
+        i0, ncols = s * nbl * bs - de_max, nbl * bs + de_max
+        lo, hi, q = sparse_eigen.table_sections(None, torch.float32, de_max,
+                                                tiers)[0]
+        ea, eb = sparse_eigen.table_pairs(grid, lo, 0, min(1 << 15, (
+            hi - lo + 1) * ncols), i0, ncols)
+        mid, halfw, pair, scal, order = cuda_kappa._prepare(p, ea, eb, om, q)
+        got = cuda_kappa.kappa_pairs_fused(p, ea, eb, om, ms=(0,), quad=q)[0]
+        plain = cuda_kappa.kappa_pairs_ref(p, ea, eb, om, ms=(0,), quad=q)[0]
+        exact = cuda_kappa._finish(p, cuda_kappa._plain(
+            mid.double(), halfw.double(), pair.double(), scal.double(),
+            order, (0,)), (0,))[0]
+        bar = max(5e-7 * max(float(exact.abs().max()), 1.0),
+                  float((plain - exact).abs().max()))
+        assert float((got - exact).abs().max()) <= bar
+        chunks = sum(1 for _ in sparse_eigen.table_pair_chunks(
+            grid, de_max, None, tiers, sparse_eigen.FUSED_CHUNK, i0, ncols))
+        before = cuda_kappa.LAUNCHES
+        win = sparse_eigen.assemble_bdia_window(p, grid, cb, om, h, bs,
+                                                s * nbl, nbl, tiers=tiers,
+                                                fused=True)
+        torch.cuda.synchronize()
+        assert cuda_kappa.LAUNCHES == before + chunks
+        assert win.is_cuda and bool(torch.isfinite(win).all())
+        rows = whole[:, s * nbl:(s + 1) * nbl]
+        assert float((win - rows).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_mesh_solve_equals_single_device(card):
+    """spike.solve over a one-rank NCCL mesh (a spawned rank on card 0)
+    walks the single-device banded float32 solve: the same steps, omega
+    within 1e-6, the same null vector, K1 launched in the rank."""
+    import torch_mesh_worker as worker
+    cfg = _cfg("tokamak", 128)
+    kw = dict(tol=1e-5, band_deta=10.0)
+    got = mesh_mod.launch(worker.spike_solve_card, 1, "cuda", deadline=300,
+                          args=(cfg, 128, kw))[0]
+    p = et.from_config(cfg, dtype=torch.float32, device=card)
+    om, vec, steps, _ = sparse_eigen.solve(p, -0.8 + 0.25j, **kw)
+    assert got["device"].startswith("cuda")
+    assert got["steps"] == steps
+    assert abs(got["omega"] - om) <= 1e-6 * abs(om)
+    v, w = got["vec"].to(torch.complex128), vec.cpu().to(torch.complex128)
+    corr = float(torch.vdot(v, w).abs() / (v.norm() * w.norm()))
+    assert corr > 1 - 1e-5
+    assert got["k1_launches"] > 0

@@ -1,8 +1,9 @@
 """emme_tpu_torch.driver against emme_tpu.driver and the reference goldens
 on the CPU: the scan walk, fault capture, checkpoint / resume, the parallel
 scan, one whole run of both packages at tok32, the eta_i scan, the sparse
-backend, PIC through the driver, and what the port does not take (mesh,
-pic_sorted).  float64 unless said; every call of the port names the CPU."""
+backend, PIC through the driver, what the port does not take
+(pic_sorted) and the mesh's argument checks (the mesh paths themselves:
+tests/test_torch_mesh_*.py).  float64 unless said; every call of the port names the CPU."""
 import json
 import warnings
 
@@ -614,17 +615,26 @@ def test_pic_backend_fused(tmp_path, tokamak_cfg):
 # ---------------------------------------------------------------------------
 
 def test_pic_sorted_and_mesh_raise(tmp_path, tokamak_cfg, pic_cfg):
+    """pic_sorted raises; a mesh on the card (the default device) needs one
+    card a rank and never falls back to the CPU; a scan axis needs rows;
+    the solvers take only a parallel.mesh.Mesh."""
     with pytest.raises(ValueError, match="sorted-window"):
         driver.run(dict(pic_cfg, pic_sorted=True), output_dir=tmp_path,
                    device="cpu", verbose=False)
-    cfg = dict(tokamak_cfg, npoints=32)
-    for kw, extra in ((dict(mesh_rows=2), {}), (dict(mesh_scan=2), {}),
-                      ({}, {"mesh": {"rows": 2}})):
-        with pytest.raises(NotImplementedError, match="item 17"):
+    cfg = dict(tokamak_cfg, npoints=32, method="eigen")
+    have = torch.cuda.device_count()
+    for kw, extra in ((dict(mesh_rows=have + 2), {}),
+                      ({}, {"mesh": {"rows": have + 2}})):
+        with pytest.raises(ValueError,
+                           match=f"{have + 2} ranks on CUDA need "
+                                 f"{have + 2} cards .* {have} visible"):
             driver.run(dict(cfg, **extra), output_dir=tmp_path,
-                       device="cpu", verbose=False, **kw)
+                       verbose=False, **kw)
+    with pytest.raises(ValueError, match="needs mesh rows"):
+        driver.run(cfg, output_dir=tmp_path, device="cpu", verbose=False,
+                   mesh_scan=2)
     for solve in (driver.solve_once_eigen, driver.solve_once_pic):
-        with pytest.raises(NotImplementedError, match="item 17"):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             solve(dict(pic_cfg), -0.8 + 0.25j, device="cpu", mesh=object())
 
 

@@ -21,6 +21,8 @@ MODULES = [
     "emme_tpu_torch.solvers.eigen", "emme_tpu_torch.solvers.pic",
     "emme_tpu_torch.solvers.cuda_pic", "emme_tpu_torch.solvers.arnoldi",
     "emme_tpu_torch.solvers.sparse_eigen",
+    "emme_tpu_torch.parallel", "emme_tpu_torch.parallel.mesh",
+    "emme_tpu_torch.parallel.sharded", "emme_tpu_torch.parallel.spike",
     "emme_tpu_torch.tools", "emme_tpu_torch.tools.pic_bench",
     "emme_tpu_torch.tools.sass_count", "emme_tpu_torch.tools.spmv_bench",
     "emme_tpu_torch.tools.div_const_check",
@@ -63,6 +65,19 @@ ENTRY_POINTS = {
                                       "integrate_fixed"),
     "emme_tpu_torch.solvers.cuda_pic": ("form", "run", "stage", "mega"),
     "emme_tpu_torch.driver": ("fused_pic_ok", "solve_once_pic"),
+    "emme_tpu_torch.parallel.mesh": (
+        "make_mesh", "distributed_init", "launch", "axis_index", "all_gather",
+        "psum", "broadcast", "ppermute", "all_gather_object"),
+    "emme_tpu_torch.parallel.sharded": (
+        "sharded_assemble", "sharded_newton_step", "sharded_init_state",
+        "solve", "shard_bdia", "bdia_matvec_local", "sharded_bdia_matvec",
+        "pic_sharded_step", "pic_sharded_run", "pic_sharded_run_timed",
+        "pic_sharded_run_streaming"),
+    "emme_tpu_torch.parallel.spike": (
+        "sharded_assemble_bdia", "sharded_trace_d_omega", "sharded_solve_vec",
+        "sharded_bordered_d_omega", "sharded_nullspace", "solve"),
+    "emme_tpu_torch.solvers.sparse_eigen": ("assemble_bdia_window",
+                                            "solve_shifts"),
 }
 
 
