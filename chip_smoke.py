@@ -124,6 +124,17 @@ check exits non-zero:
    launches of K2), the same case at npoints 16,384 (time_step large_dt:
    one launch of K3, a finite field of 16,384 entries), and 16 steps on the
    default streaming path, whose dump holds 16 x 1024 complex128 values.
+19b. driver_pic_sorted: phase 19's input file with "pic_sorted": true at
+   the driver's defaults (W 384, 128 chunks of 8,192 markers), twice: no
+   window violation, no kernel launched (the sorted path is plain torch,
+   whatever pic_backend says), no field dump, the fit within 5 % / 10 % of
+   golden pic_tok1024; its seconds, sorts and peak device memory (also
+   over what was allocated before it) beside the plain path from the same
+   file ("pic_backend": "xla").  Then, from
+   one state, 8 canonical steps of pic.run_sorted against pic.run (stats
+   within 1e-4 relative, ms of each) and of the 'matmul' and 'bf16' CIC
+   forms against 'take' / 'segment' ('matmul' field within 1e-4; 'bf16'
+   printed, beside a repeat of the plain run).
 20. driver_scan: tokamak npoints 1024 --f32 with "eta_i": {"head": 3.0,
    "step": 0.25, "tail": 3.5}: three points in walk order, each omega
    within 2e-5 of a direct eigen.solve at that eta_i from the seed the walk
@@ -294,6 +305,11 @@ K3_FLOP_PER_MARKER_STAGE = {
     "asymptotic": {"0_first": 474, "0": 474, "1": 474, "2": 480},
     "static": {"0_first": 878, "0": 876, "1": 876, "2": 882}}
 BARRIER_ROUNDS = 1081   # K3's canonical run: two barriers a stage, and one
+# driver_pic_sorted: the steps of run_sorted against run and of the CIC
+# forms against take / segment, and the bar of both (float32 rounding: the
+# unwrapped eta and the order of the sums)
+SORTED_CHECK_STEPS = 8
+SORTED_STATS_BAR = 1e-4
 # pic_large_grid: the forms past the small-grid build (histogram in shared
 # memory, scratch row a block), and the markers per cell of the fit check
 LARGE_NF = (16384, 32768)
@@ -1667,7 +1683,7 @@ def driver_phases(torch, card, slice_omega, certify_s):
 
     from emme_tpu_torch import cli, from_config
     from emme_tpu_torch.ops import cuda_kappa, cuda_spmv, sparse
-    from emme_tpu_torch.solvers import cuda_pic, eigen
+    from emme_tpu_torch.solvers import cuda_pic, eigen, pic
     from emme_tpu_torch.solvers import sparse_eigen as se
     from emme_tpu_torch.utils.timer import Timer
 
@@ -1828,6 +1844,10 @@ def driver_phases(torch, card, slice_omega, certify_s):
              streaming={"steps": 16, "seconds": secs16,
                         "dump_values": int(hist.shape[0])}, card=card)
 
+        # 19b. driver_pic_sorted
+        driver_pic_sorted(torch, card, tmp, pic_cfg, run_cli, single, pic,
+                          from_config)
+
         # 20. driver_scan
         scan_cfg = dict(cfg, eta_i={"head": 3.0, "step": 0.25, "tail": 3.5})
         doc, out, secs, first_s, got = run_cli(
@@ -1932,6 +1952,97 @@ def driver_phases(torch, card, slice_omega, certify_s):
                                                   per_step.values()),
           f"the three sections were timed: {timer.timings()}")
     return launches, {k: " + ".join(v) for k, v in sources.items()}
+
+
+def driver_pic_sorted(torch, card, tmp, pic_cfg, run_cli, single, pic,
+                      from_config):
+    """Phase 19b: the sorted-window PIC path (plain torch, no kernel) from
+    phase 19's input file with "pic_sorted": true at the driver's defaults,
+    beside the plain path from the same file; then run_sorted against
+    pic.run, and the 'matmul' and 'bf16' CIC forms against 'take' /
+    'segment', over SORTED_CHECK_STEPS canonical steps from one state."""
+    f32 = torch.float32
+    viols = []
+    real_run_sorted = pic.run_sorted
+
+    def counted_run_sorted(*args, **kwargs):
+        stats, state, v = real_run_sorted(*args, **kwargs)
+        viols.append(int(v))
+        return stats, state, v
+
+    pic.run_sorted = counted_run_sorted
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    doc, out, secs, first_s, got = run_cli(
+        tmp, "driver_pic_sorted", dict(pic_cfg, pic_sorted=True), "--f32")
+    peak = torch.cuda.max_memory_allocated()
+    pic.run_sorted = real_run_sorted
+    chose = dict(pic.LAST_SORTED)
+    res = single(doc)
+    om = complex(*res["eigenvalue"])
+    d_om = abs(om.real - GOLDEN_PIC.real) / abs(GOLDEN_PIC.real)
+    d_gam = abs(om.imag - GOLDEN_PIC.imag) / abs(GOLDEN_PIC.imag)
+    _, _, plain_secs, _, _ = run_cli(
+        tmp, "driver_pic_plain", dict(pic_cfg, pic_backend="xla"), "--f32")
+    check(viols == [0, 0], f"no window violation in either run: {viols}")
+    check(chose["R"] * chose["sorts"] == PIC_STEPS
+          and chose["W"] == 384 and chose["n_chunks"] == 128,
+          f"the driver's defaults give W 384 and 128 chunks: {chose}")
+    check(sum(got.values()) == 0,
+          f"the sorted path launches no kernel, whatever pic_backend: {got}")
+    check(d_om < 0.05 and d_gam < 0.10,
+          f"sorted fit {om} within 5 % / 10 % of golden pic_tok1024 "
+          f"{GOLDEN_PIC}")
+    check(len(res["eigenvector"]) == N_TOK
+          and all(math.isfinite(v) for pair in res["eigenvector"]
+                  for v in pair), "sorted final field: 1024 finite entries")
+    check(not (out / "eigenMatrics" / "eigenMatrix.bin").exists(),
+          "the sorted path writes no field dump")
+
+    p = from_config(pic_cfg, dtype=f32)
+    s0 = pic.init_state(p, PIC_MPC,
+                        torch.Generator(device="cuda").manual_seed(2),
+                        dtype=f32)
+    n = SORTED_CHECK_STEPS
+
+    def plain(**kw):
+        return pic.run(p, PIC_MPC, n, PIC_DT, state=s0, **kw)
+
+    sorted_ms, (st_s, s_s, v_s) = timed(lambda: pic.run_sorted(
+        p, PIC_MPC, n, PIC_DT, state=s0, resort_every=30), torch)
+    check_chose = dict(pic.LAST_SORTED)
+    plain_ms, (st_p, s_p, _) = timed(plain, torch)
+    st_r, s_r, _ = plain()
+    forms = {name: plain(gather_method=name, deposit_method=name)
+             for name in ("matmul", "bf16")}
+    stats_rel = rel_err(st_s, st_p)
+    field_rel = rel_err(s_s.field, s_p.field)
+    cic = {name: {"field_rel": rel_err(f[1].field, s_p.field),
+                  "stats_rel": rel_err(f[0], st_p)}
+           for name, f in forms.items()}
+    emit("driver_pic_sorted", case="cli tok1024 x 1024 markers/cell, 180 "
+         "steps, dt 0.25, --f32, pic_sorted (pic_backend fused ignored)",
+         omega=[om.real, om.imag], golden=[GOLDEN_PIC.real, GOLDEN_PIC.imag],
+         rel_err=[d_om, d_gam], seconds=secs, first_run_seconds=first_s,
+         plain_from_file_seconds=plain_secs,
+         plain_direct_seconds=SINGLE.get("pic_plain_seconds"),
+         sorts=chose["sorts"], chose=chose, violations=viols,
+         peak_device_bytes=peak, peak_device_bytes_over_held=peak - held,
+         launches=got,
+         sorted_vs_plain={"steps": n, "chose": check_chose,
+                          "violations": int(v_s), "stats_rel": stats_rel,
+                          "field_rel": field_rel, "sorted_ms": sorted_ms,
+                          "plain_ms": plain_ms},
+         cic_forms={"plain_repeat_field_rel": rel_err(s_r.field, s_p.field),
+                    **cic}, card=card)
+    check(int(v_s) == 0, f"run_sorted over {n} steps: {int(v_s)} violations")
+    check(stats_rel < SORTED_STATS_BAR,
+          f"run_sorted vs run stats {stats_rel:.3e} < {SORTED_STATS_BAR}")
+    check(cic["matmul"]["field_rel"] < SORTED_STATS_BAR,
+          f"'matmul' CIC vs take / segment field "
+          f"{cic['matmul']['field_rel']:.3e} < {SORTED_STATS_BAR}")
+    check(all(bool(torch.isfinite(f[1].field).all()) for f in forms.values()),
+          "the 'matmul' and 'bf16' runs are finite")
 
 
 def dense_arnoldi_phase(torch, card):

@@ -21,8 +21,9 @@ or the input key ``"mesh": {"rows": R, "scan": S}``) run the job SPMD over
 R x S ranks of a ``torch.distributed`` group (``parallel/mesh.py``): NCCL
 with one rank a card, or gloo between CPU processes with
 ``device="cpu"``.  There is no fallback to the CPU: more ranks than cards
-raise.  The sorted-window PIC path of the JAX package (``"pic_sorted"``)
-is not in the port: it raises.
+raise.  Every input key of the JAX package's driver is read here, the
+sorted-window PIC path (``"pic_sorted"``) and every CIC form of
+``gather_method`` / ``deposit_method`` included.
 """
 
 from __future__ import annotations
@@ -298,10 +299,17 @@ def solve_once_pic(cfg: dict, omega_guess: complex, matrix_file=None,
     schema; every value is exact float32 on the card), ``pic_launch``
     ('auto' | 'single' | 'stages': the whole time loop as ONE cooperative
     launch of kernel K3 against one launch of K2 per RK stage),
-    ``gather_method`` ('take'), ``deposit_method`` ('segment'),
+    ``gather_method`` ('take' | 'matmul' | 'bf16'), ``deposit_method``
+    ('segment' | 'matmul' | 'bf16'; ``pic.gather_cic``, ``pic.deposit``),
     ``pic_timers`` (per-phase Particle Pushing / Field Solve / Diagnostics
-    sections), ``time_step_adaptive`` (embedded-error step control, the
-    reference Integrator's step_adaptive that its main() never wires up),
+    sections), ``pic_sorted`` (the sorted-window marker path,
+    ``pic.run_sorted``, with ``pic_resort_every`` (30), ``pic_window``
+    (384) and ``pic_chunk_markers`` (8192); a window violation raises
+    ``RuntimeError`` unless ``pic_allow_window_violations``, which warns;
+    it writes no field dump and runs the plain path on any device, whatever
+    ``pic_backend`` says), ``time_step_adaptive`` (embedded-error step
+    control, the reference Integrator's step_adaptive that its main() never
+    wires up),
     ``stream_fields`` / ``stream_chunk_steps`` (the field dump appended
     during the run; default on when a dump is asked for), ``omega_fit``
     ('peak' | 'peak_views' | 'fft').
@@ -315,16 +323,12 @@ def solve_once_pic(cfg: dict, omega_guess: complex, matrix_file=None,
     markers shard over its ``rows`` axis and the deposited density is
     summed over the ranks (``parallel/sharded.pic_sharded_run``, the plain
     step, as in the JAX package); ``pic_timers`` and the streamed dump keep
-    their forms; ``time_step_adaptive`` raises.  Rank 0 of ``rows`` writes
-    the dump."""
+    their forms; ``time_step_adaptive`` raises; ``pic_sorted`` and the CIC
+    forms are not read (the JAX package's precedence: the mesh comes
+    first).  Rank 0 of ``rows`` writes the dump."""
     _check_mesh(mesh)
     if mesh is not None:
         device = mesh.device
-    if cfg.get("pic_sorted"):
-        raise ValueError(
-            "pic_sorted: the sorted-window marker path is a TPU form that "
-            "the port does not have; drop the key (the fused kernels of "
-            "pic_backend='fused' need no sorting)")
     p = params_mod.from_config(cfg, dtype=dtype, device=device)
     mpc = int(cfg["marker_per_cell"])
     nt = int(cfg["step_number"])
@@ -372,6 +376,21 @@ def solve_once_pic(cfg: dict, omega_guess: complex, matrix_file=None,
             stats, state, fields = pic.run_timed(
                 p, mpc, nt, dt, generator=gen,
                 record_fields=matrix_file is not None)
+        elif cfg.get("pic_sorted"):
+            stats, state, viols = pic.run_sorted(
+                p, mpc, nt, dt, generator=gen,
+                resort_every=int(cfg.get("pic_resort_every", 30)),
+                window=int(cfg.get("pic_window", 384)),
+                chunk_markers=int(cfg.get("pic_chunk_markers", 8192)))
+            if int(viols):
+                # a clamped marker deposits at a wrong cell: wrong physics
+                msg = (f"pic_sorted: {int(viols)} marker-stage window "
+                       "violations (markers clamped to their chunk window "
+                       "-- deposits landed at wrong cells); widen "
+                       "pic_window or lower pic_resort_every")
+                if not cfg.get("pic_allow_window_violations"):
+                    raise RuntimeError(msg)
+                warnings.warn(msg)
         elif stream:
             # per-step field history flushed DURING the run (parity with
             # main.cpp:105-110: a killed run keeps the flushed steps)

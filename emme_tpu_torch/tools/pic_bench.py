@@ -1,5 +1,6 @@
-"""Times of the PIC kernels K2, K3, K4 at the canonical size on one NVIDIA
-GPU, one JSON line per measurement.
+"""Times of the PIC kernels K2, K3, K4, and of 8 steps of the plain and the
+sorted-window paths, at the canonical size on one NVIDIA GPU, one JSON line
+per measurement.
 
     python3 emme_tpu_torch/tools/pic_bench.py [--root DIR ...] [--sweep]
 
@@ -95,6 +96,19 @@ def measure(root, sweep):
     emit(what="k3_canonical", steps=CASE["steps"], markers=m, **summary(k3),
          eta_digest=digest(out8[0]), state_digest=digest(*out8[1:]),
          shape=getattr(cuda_pic, "LAST_MEGA_GRID", None), **tag)
+
+    # the plain path over 8 steps and, where the root has it, the
+    # sorted-window path at the driver's defaults (device span of the whole
+    # host-driven chain; the atomics' order varies, so no digest)
+    plain8 = event_ms(lambda: pic.run(p, CASE["mpc"], 8, CASE["dt"],
+                                      state=s0), torch, 5)
+    emit(what="plain_8_steps", **summary(plain8), **tag)
+    if hasattr(pic, "run_sorted"):
+        sorted8 = event_ms(lambda: pic.run_sorted(
+            p, CASE["mpc"], 8, CASE["dt"], state=s0, resort_every=30),
+            torch, 5)
+        emit(what="sorted_8_steps", **summary(sorted8),
+             chose=dict(pic.LAST_SORTED), **tag)
 
     # K2: stage 1 after two plain stages, then the field reduce
     arrs1, field1 = arrs, field

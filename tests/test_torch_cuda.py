@@ -4,8 +4,9 @@ with its polish, and K1 at the window shape of the mesh-sharded banded
 assembly); K2, K3 and K4 (the fused PIC marker pass, in each of its
 forms) and the fused PIC run; K5 (the BSR SpMV) and the banded solve through
 it; the driver's three kernel routes from an input dict, each against
-the same driver call on CPU tensors; and a one-rank NCCL mesh solve against
-the single-device solve.  Every test here needs a card and skips
+the same driver call on CPU tensors; a one-rank NCCL mesh solve against
+the single-device solve; and the sorted-window PIC path (plain torch, no
+kernel) against the plain run.  Every test here needs a card and skips
 without one.
 
 This file imports torch, numpy and the port only, so it also runs on a
@@ -350,6 +351,27 @@ def test_pic_kernels_refuse_a_tile_across_planes(card):
         cuda_pic.mega(True, np.zeros(cuda_pic.N_PARAMS, np.float32), fr, fr,
                       fr, arrs, 1)
     assert cuda_pic.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_run_sorted_matches_run_on_card(card):
+    """The sorted-window path on the card (npoints 128, 64 markers a cell,
+    float32, windows of 32 cells over chunks of 512 markers) for 8 steps
+    against pic.run from the same state: no violation, the stats within
+    1e-4 relative and the field within 1e-3 of its scale (only float32
+    rounding parts them: the unwrapped eta and the order of the sums; on
+    CPU tensors 1.7e-6 to 4.6e-6 and 2.6e-5 to 6.6e-5 over three seeds)."""
+    p, s0 = _pic_case(card, 128, 64)
+    st, s, viols = pic.run_sorted(p, 64, 8, 0.25, state=s0, window=32,
+                                  chunk_markers=512)
+    st_r, s_r, _ = pic.run(p, 64, 8, 0.25, state=s0)
+    assert s.field.is_cuda and st.shape == (8, 3)
+    assert int(viols) == 0
+    assert pic.LAST_SORTED["n_chunks"] == 16
+    assert pic.LAST_SORTED["sorts"] * pic.LAST_SORTED["R"] == 8
+    assert bool(torch.isfinite(st).all())
+    assert _rel(st, st_r) < 1e-4
+    assert _rel(s.field, s_r.field) < 1e-3
 
 
 @pytest.mark.cuda

@@ -615,12 +615,10 @@ def test_pic_backend_fused(tmp_path, tokamak_cfg):
 # ---------------------------------------------------------------------------
 
 def test_pic_sorted_and_mesh_raise(tmp_path, tokamak_cfg, pic_cfg):
-    """pic_sorted raises; a mesh on the card (the default device) needs one
-    card a rank and never falls back to the CPU; a scan axis needs rows;
-    the solvers take only a parallel.mesh.Mesh."""
-    with pytest.raises(ValueError, match="sorted-window"):
-        driver.run(dict(pic_cfg, pic_sorted=True), output_dir=tmp_path,
-                   device="cpu", verbose=False)
+    """A mesh on the card (the default device) needs one card a rank and
+    never falls back to the CPU; a scan axis needs rows; the solvers take
+    only a parallel.mesh.Mesh.  (pic_sorted runs since the sorted-window
+    path was ported: tests/test_torch_pic_sorted.py.)"""
     cfg = dict(tokamak_cfg, npoints=32, method="eigen")
     have = torch.cuda.device_count()
     for kw, extra in ((dict(mesh_rows=have + 2), {}),

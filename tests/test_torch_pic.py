@@ -145,12 +145,17 @@ def test_deposition_charge_conservation(tok64):
 
 
 def test_unported_cic_forms_raise(tok64):
-    """Only the 'take' gather and the 'segment' deposit are ported."""
+    """A CIC form name that neither package has raises a ValueError naming
+    the forms there are ('take' / 'matmul' / 'bf16' gathers, 'segment' /
+    'matmul' / 'bf16' deposits), where emme_tpu runs its one-hot form for
+    any unknown name (a deliberate deviation, ROADMAP.md Queue 3)."""
     _, pt = tok64
-    with pytest.raises(ValueError, match="take"):
-        pic.run(pt, 4, 1, 0.25, gather_method="matmul")
-    with pytest.raises(ValueError, match="segment"):
-        pic.run(pt, 4, 1, 0.25, deposit_method="bf16")
+    with pytest.raises(ValueError, match="'segment'.*'take', 'matmul'"):
+        pic.run(pt, 4, 1, 0.25, gather_method="segment")
+    with pytest.raises(ValueError, match="'take'.*'segment', 'matmul'"):
+        pic.run(pt, 4, 1, 0.25, deposit_method="take")
+    with pytest.raises(ValueError, match="'fp8'"):
+        pic.run(pt, 4, 1, 0.25, gather_method="fp8")
 
 
 # ---------------------------------------------------------------------------
