@@ -48,8 +48,9 @@ check exits non-zero:
    inverse iteration against the SVD's on the converged M (correlation >
    1 - 1e-5, residuals, times).
 6. build_pic: kernels K2, K3, K4 compiled from csrc/pic.cu (started in
-   parallel with K1's build in phase 2), each of K2 and K3 in its three
-   forms (csrc/pic.cu: where the field and the histogram live, by npoints).
+   parallel with K1's build in phase 2), each of K2 and K3 in its four
+   forms (csrc/pic.cu: where the field and the histogram live, by npoints);
+   ptxas's registers and spills of each.
 7. grid_sync_probe: the cooperative-launch attribute, K3's launch shape
    (co-resident grid, shared memory, registers) and K4 at that grid, which
    must see every block's writes; K4's time beside the
@@ -151,21 +152,33 @@ check exits non-zero:
    step of " - linear solve", " - integration" and " - differential", each
    ended by a device synchronize.
 23. pic_large_grid: K2 and K3 past the small-grid form, tokamak npoints
-   16,384 (16,777,216 markers: the histogram in shared memory, the field
-   from device memory) and 32,768 (33,554,432 markers: a scratch row a
-   block), 1024 markers per cell, drift-center, dt 0.25 scaled with the
-   cell width (large_dt: at dt 0.25 the grid-scale mode overflows float32
-   within the canonical 180 steps there).  K3 against mega_ref over 8 steps
-   at both grids
-   and K2's stage 1 against stage_ref at 16,384, at phases 8-9's bars; eta
-   bit-equal between two K3 runs and between K3 and K2 (the run entry
-   point, launch="stages", counted); the 180-step run through
-   cuda_pic.run, counted, finite, and K3 alone over it (median of 3 after
-   a warm-up) with its bound; K3 against the plain pic.run from one state
-   at 256 markers per cell, 30 steps, per-step statistics within 1 %; and,
-   reported only, K3 over 180 steps at dt 0.25 from the 1024- and the
-   256-markers-a-cell states: the first step that leaves float32.
-   Time limit 240 s.
+   16,384 (16,777,216 markers: the histogram in one block's shared memory,
+   a cluster of one, the field from device memory), 1024 markers per cell,
+   drift-center, dt 0.25 scaled with the cell width (large_dt: at dt 0.25
+   the grid-scale mode overflows float32 within the canonical 180 steps
+   there).  K3 against mega_ref over 8 steps and K2's stage 1 against
+   stage_ref, at phases 8-9's bars; eta bit-equal between two K3 runs and
+   between K3 and K2 (the run entry point, launch="stages", counted); the
+   deposit's share of K3's time (K3 without it, by difference); the
+   180-step run through cuda_pic.run, counted, finite, and K3 alone over
+   it (median of 3 after a warm-up) with its bound; K3 against the plain
+   pic.run from one state at 256 markers per cell, 30 steps, per-step
+   statistics within 1 %; and, reported only, K3 over 180 steps at dt 0.25
+   from the 1024- and the 256-markers-a-cell states: the first step that
+   leaves float32.  Then, one line each (pic_large_grid_size), npoints
+   32,768 and 65,536 (1024 markers per cell: 33.5M and 67.1M markers; the
+   histogram in a thread-block cluster's distributed shared memory,
+   clusters of 2 and 4), 224,256 (16 markers per cell, the cluster form's
+   cap: clusters of 8, every rank's slice filling its block) and 229,376
+   (16 markers per cell, past the cap: a scratch row a block): the launch
+   shape (cluster size, clusters, SMs covered), K4 at that shape against
+   its plain version, K3 against mega_ref over 8 steps and twice, the
+   deposit's share, K2's stage 1 against stage_ref, and the run entry
+   point counted, launch "auto" (K4 and K3 once) and "stages" (K2), eta
+   bit-equal with K3; K3's launch shape (clusters, SMs covered) for
+   clusters of 2, 4 and 8.  K3's bounds count the markers' bytes once a
+   stage where their state outgrows the L2, the carry left out (k3_bytes).
+   Time limit 300 s.
 24. dense_arnoldi: arnoldi.solve(p, -0.8+0.25j, m_krylov=24,
    newton_polish=6, tol=1e-5) at tok1024 float32 (assemblies through K1
    on the base panel mesh) and eigen.solve's TraceSecant from the same
@@ -200,14 +213,16 @@ check exits non-zero:
    seconds beside its single-device phase's (14, 4 and 10's plain run).
 
 The kernels JSON gives every kernel its bound: the larger of the bytes it
-must move (each input read once, each output written once) over 3.35 TB/s
-and its float32 operations over 67 TFLOP/s (NVIDIA's H100 SXM data sheet),
-from this run's shapes and data.  The operations of a node of K1 and of a
-marker-stage of K2 / K3 are counted from the kernels' machine code
-(emme_tpu_torch/tools/sass_count.py, an FMA as two) on the path a node or
-marker executes: one side of each Bessel function's split, Taylor or
-asymptotic, never both, weighted by the share of this run's nodes and
-markers on each side; for K3 the stage body with J0 and the phase factor
+must move (each input read once, each output written once; for K3, whose
+markers' state outgrows the 50 MB L2 past the canonical size, each
+stage's marker loads and stores less the share the L2 could hold) over
+3.35 TB/s and its float32 operations over 67 TFLOP/s (NVIDIA's H100 SXM
+data sheet), from this run's shapes and data.  The operations of a node
+of K1 and of a marker-stage of K2 / K3 are counted from the kernels'
+machine code (emme_tpu_torch/tools/sass_count.py, an FMA as two) on the
+path a node or marker executes: one side of each Bessel function's split,
+Taylor or asymptotic, never both, weighted by the share of this run's nodes
+and markers on each side; for K3 the stage body with J0 and the phase factor
 carried in.  The static count of both sides together stands beside it as
 static_flop_per_unit and is used in no bound.
 
@@ -284,9 +299,10 @@ CERT_BAR = 2e-6    # tests/test_sparse_eigen.py:56; BENCH_SPARSE.md:17 1.44e-6
 SPMV_BARS = {"complex64": 1e-5, "complex128": 1e-12}
 K1_CHECK_PAIRS = 1 << 17   # pairs per tier section in banded_kernel_vs_plain
 # NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the
-# tensor cores
+# tensor cores, L2 cache
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+L2_BYTES = 50e6
 # float32 operations (FMA = 2, MUFU = 1) of one quadrature node of K1 and of
 # one marker-stage of K2 / K3 (drift-center on), from
 # emme_tpu_torch/tools/sass_count.py on CUDA 12.8: the kernel compiled with
@@ -304,15 +320,30 @@ K3_FLOP_PER_MARKER_STAGE = {
     "taylor": {"0_first": 722, "0": 721, "1": 721, "2": 727},
     "asymptotic": {"0_first": 474, "0": 474, "1": 474, "2": 480},
     "static": {"0_first": 878, "0": 876, "1": 876, "2": 882}}
+# Bytes a marker-stage of the K3 run must move in device memory, drift-center
+# on (csrc/pic.cu mega_markers): Markers' v_par, v_perp, odv, ost, pw and
+# MegaState's eta, wre, wim read, 32; eta, wre, wim written, 12; vel written
+# at stage 1 and read at stage 2, 8.  The carry (j0, dcr, dci) is left out: it
+# caches values the stage could compute from the same inputs, and the
+# operations side (K3_FLOP_PER_MARKER_STAGE) already takes its saving.  The
+# state a marker keeps between stages: Markers and vel, 10 float32 arrays.
+K3_BYTES_PER_MARKER_STAGE = {"0_first": 44, "0": 44, "1": 52, "2": 52}
+K3_STATE_BYTES_PER_MARKER = 40
 BARRIER_ROUNDS = 1081   # K3's canonical run: two barriers a stage, and one
 # driver_pic_sorted: the steps of run_sorted against run and of the CIC
 # forms against take / segment, and the bar of both (float32 rounding: the
 # unwrapped eta and the order of the sums)
 SORTED_CHECK_STEPS = 8
 SORTED_STATS_BAR = 1e-4
-# pic_large_grid: the forms past the small-grid build (histogram in shared
-# memory, scratch row a block), and the markers per cell of the fit check
-LARGE_NF = (16384, 32768)
+# pic_large_grid: the forms past the small-grid build: the histogram in one
+# block's shared memory (16,384), in a cluster's distributed shared memory
+# (32,768: clusters of 2; 65,536: of 4; 224,256, the cap: of 8, each rank's
+# slice filling its block) and a scratch row a block (229,376, past the
+# cluster form's cap); each size's markers per cell (fewer at the two
+# largest); the markers per cell of the fit check
+LARGE_NF = (16384, 32768, 65536, 224256, 229376)
+LARGE_MPC = {224256: 16, 229376: 16}
+CLUSTER_SHAPE_NF = (32768, 65536, 131072)   # clusters of 2, 4, 8
 FIT_MPC = 256
 CROSS_STEPS = 30
 
@@ -327,7 +358,7 @@ def large_dt(n):
     in emme_tpu too (tests/test_torch_cuda_pic_cpu.py); at this dt the
     180-step run stays finite.  A step's work does not depend on dt."""
     return PIC_DT * N_TOK / n
-LARGE_TIME_LIMIT_S = 240
+LARGE_TIME_LIMIT_S = 300
 
 
 MESH_ROWS = 4            # the window layout of mesh_window_assembly
@@ -480,6 +511,20 @@ def pic_asymptotic_share(torch, cuda_pic, params, arrs):
     arg = arrs["v_perp"] / vt * torch.sqrt(
         bt * (1.0 + (shat * arrs["eta"]) ** 2))
     return float((arg.abs() > 8.0).float().mean())
+
+
+def k3_bytes(markers, n_steps, once_bytes):
+    """Bytes a K3 run must move.  Where the markers' state (10 float32
+    arrays) outgrows the L2 cache it streams through device memory every
+    stage: each stage's loads and stores count (K3_BYTES_PER_MARKER_STAGE),
+    less the share of the state the L2 could hold from stage to stage.  At
+    least each input read once and each output written once
+    (``once_bytes``), the whole count where the state fits the L2."""
+    per = K3_BYTES_PER_MARKER_STAGE
+    staged = markers * (per["0_first"] + (n_steps - 1) * per["0"]
+                        + n_steps * (per["1"] + per["2"]))
+    state = markers * K3_STATE_BYTES_PER_MARKER
+    return max(once_bytes, staged * max(0.0, 1.0 - L2_BYTES / state))
 
 
 def k3_flop(asym_share, markers, n_steps):
@@ -786,8 +831,9 @@ def pic_phases(torch, build_rec, card):
         part_us[name] = 1e3 * ms_ / n_stages
     asym_c = pic_asymptotic_share(torch, cuda_pic, fs.params, arrs_c)
     k3_run_bound = bound(
-        nbytes(*field_c, qn, *arrs_c.values(), arrs_c["eta"], arrs_c["w_re"],
-               arrs_c["w_im"], *field_c, stats),
+        k3_bytes(m, PIC_STEPS, nbytes(
+            *field_c, qn, *arrs_c.values(), arrs_c["eta"], arrs_c["w_re"],
+            arrs_c["w_im"], *field_c, stats)),
         k3_flop(asym_c, m, PIC_STEPS))
     emit("pic_breakdown", case="canonical run, K3", stages=n_stages,
          us_per_stage=part_us["all"],
@@ -804,7 +850,8 @@ def pic_phases(torch, build_rec, card):
          share_of_bound=k3_run_bound["bound_ms"] / k3_run_ms, card=card)
 
     k3_bound = bound(
-        nbytes(*field0, qn, *arrs0.values(), *(t for t, _ in k3_vs_plain)),
+        k3_bytes(m, n9, nbytes(*field0, qn, *arrs0.values(),
+                               *(t for t, _ in k3_vs_plain))),
         k3_flop(pic_asymptotic_share(torch, cuda_pic, fs.params, arrs0), m,
                 n9))
     src, rep = "emme_tpu_torch/csrc/pic.cu", "emme_tpu/solvers/pallas_pic.py"
@@ -879,16 +926,18 @@ def canonical_dt_run(torch, cuda_pic, p, qn, arrs, field):
 def pic_large_grid_phase(torch, card):
     """Phase 23 (pic_large_grid): K2 and K3 past the small-grid form, at
     the canonical case's settings but npoints 16,384 (16,777,216 markers;
-    the histogram in shared memory, the field from device memory) and
-    32,768 (a scratch row a block).  Returns the K2 and K3 entries' large
-    grid fields and their launches on the run entry point."""
+    the histogram in one block's shared memory, the field from device
+    memory), then
+    each size of LARGE_NF past it (large_grid_size: the cluster form and
+    the scratch-row form).  Returns the K2 and K3 entries' large grid
+    fields and their launches on the run entry point."""
     from emme_tpu_torch import from_config
     from emme_tpu_torch.solvers import cuda_pic, pic
 
     limit = watchdog(LARGE_TIME_LIMIT_S, "phase pic_large_grid")
     dev = torch.device("cuda")
     f32 = torch.float32
-    n, n_big = LARGE_NF
+    n = LARGE_NF[0]
     dt = large_dt(n)
     p = from_config(load_cfg("tokamak", n), dtype=f32)
     m = PIC_MPC * n
@@ -899,9 +948,10 @@ def pic_large_grid_phase(torch, card):
     arrs0 = cuda_pic.state_to_arrs(s0)
     field0 = (s0.field.real.contiguous(), s0.field.imag.contiguous())
     shape = cuda_pic.mega_grid(dev, n, True)
-    check(shape["form"] == cuda_pic.FORM_HIST and shape["grid"] == shape["sms"],
-          f"npoints {n}: the histogram-in-shared-memory form, one block a SM: "
-          f"{shape}")
+    check(shape["form"] == cuda_pic.FORM_CLUSTER and shape["cluster"] == 1
+          and shape["grid"] == shape["sms"],
+          f"npoints {n}: the cluster form with one block a cluster, one block "
+          f"a SM: {shape}")
     n9 = 8
 
     # K3 against mega_ref over 8 steps
@@ -909,8 +959,11 @@ def pic_large_grid_phase(torch, card):
         torch, cuda_pic, fs, qn, arrs0, field0, n9, f"npoints {n}")
     check(cuda_pic.LAST_MEGA_GRID == shape, "K3 ran at its launch shape")
     asym = pic_asymptotic_share(torch, cuda_pic, fs.params, arrs0)
-    k3_bound = bound(nbytes(*field0, qn, *arrs0.values(), *k3_got),
+    k3_bound = bound(k3_bytes(m, n9, nbytes(*field0, qn, *arrs0.values(),
+                                            *k3_got)),
                      k3_flop(asym, m, n9))
+    deposit = deposit_share(torch, cuda_pic, fs, qn, arrs0, field0, n9,
+                            k3_ms)
 
     # K2: one stage against stage_ref, after one plain step
     eta, wre, wim, fr, fi, _ = cuda_pic.mega_ref(True, fs.params, *field0, qn,
@@ -984,7 +1037,8 @@ def pic_large_grid_phase(torch, card):
     del s1
     run_ms, run_out = timed(lambda: cuda_pic.mega(
         True, fs.params, *field_r, qn, arrs_r, PIC_STEPS), torch)
-    run_bound = bound(nbytes(*field_r, qn, *arrs_r.values(), *run_out),
+    run_bound = bound(k3_bytes(m, PIC_STEPS, nbytes(
+        *field_r, qn, *arrs_r.values(), *run_out)),
                       k3_flop(pic_asymptotic_share(torch, cuda_pic, fs.params,
                                                    arrs_r), m, PIC_STEPS))
     del arrs_r, field_r, run_out, arrs0, field0, s0
@@ -1019,34 +1073,29 @@ def pic_large_grid_phase(torch, card):
           f"step over {n_both} finite steps: {step_diff:.3e}")
     del s_fit, st_plain, st_fit
 
-    # npoints 32,768: the scratch-row form
-    pb = from_config(load_cfg("tokamak", n_big), dtype=f32)
-    sb = pic.init_state(pb, PIC_MPC, torch.Generator(device=dev).manual_seed(0),
-                        dtype=f32)
-    fsb = cuda_pic.FusedStep(pb, PIC_MPC * n_big, large_dt(n_big))
-    qnb = pic.quasi_neutrality_coef(pb, dtype=f32)
-    arrs_b = cuda_pic.state_to_arrs(sb)
-    field_b = (sb.field.real.contiguous(), sb.field.imag.contiguous())
-    del sb
-    shape_b = cuda_pic.mega_grid(dev, n_big, True)
-    check(shape_b["form"] == cuda_pic.FORM_GLOBAL
-          and shape_b["grid"] == shape_b["sms"],
-          f"npoints {n_big}: the scratch-row form, one block a SM: {shape_b}")
-    big_got, big_err, big_ms, big_plain_ms = k3_vs_plain(
-        torch, cuda_pic, fsb, qnb, arrs_b, field_b, n9, f"npoints {n_big}")
-    big_bound = bound(nbytes(*field_b, qnb, *arrs_b.values(), *big_got),
-                      k3_flop(pic_asymptotic_share(torch, cuda_pic, fsb.params,
-                                                   arrs_b), PIC_MPC * n_big,
-                              n9))
-    del big_got, arrs_b, field_b
+    # the sizes past 16,384: the cluster form and the scratch-row form
+    sizes = [large_grid_size(torch, cuda_pic, pic, from_config, dev, nb,
+                             LARGE_MPC.get(nb, PIC_MPC), n9, card)
+             for nb in LARGE_NF[1:]]
     torch.cuda.empty_cache()
+    # K3's launch shape for each cluster size: whole clusters on a GPC
+    cluster_shapes = []
+    for nb in CLUSTER_SHAPE_NF:
+        sh = cuda_pic.mega_grid(dev, nb, True)
+        check(sh["cluster"] == cuda_pic.cluster_size(nb) > 1
+              and sh["grid"] == sh["cluster"] * sh["clusters"] > 0,
+              f"npoints {nb}: clusters of {sh['cluster']}: {sh}")
+        cluster_shapes.append({k: sh[k] for k in ("cluster", "clusters",
+                                                  "grid", "sms")})
 
     emit("pic_large_grid", case=f"tokamak npoints {n} x {PIC_MPC} markers/cell, "
-         f"dt {dt}, f32, drift-center; and npoints {n_big}, dt "
-         f"{large_dt(n_big)}", markers=m, dt=dt,
-         launch_shape=shape, launch_shape_big=shape_b,
+         f"dt {dt}, f32, drift-center; and npoints "
+         f"{', '.join(str(z['npoints']) for z in sizes)}", markers=m, dt=dt,
+         launch_shape=shape,
          k3_vs_plain_max_abs_err=k3_err, k3_ms=k3_ms, k3_plain_ms=k3_plain_ms,
-         k3_bound_ms=k3_bound["bound_ms"], k2_vs_plain_max_abs_err=k2_err,
+         k3_bound_ms=k3_bound["bound_ms"], k3_bound_by=k3_bound["bound_by"],
+         k3_share_of_bound=k3_bound["bound_ms"] / k3_ms, deposit=deposit,
+         k2_vs_plain_max_abs_err=k2_err,
          k2_stage_ms=k2_ms, k2_plain_ms=k2_plain_ms,
          k2_bound_ms=k2_bound["bound_ms"], k2_launches=k2_launches,
          run={"steps": PIC_STEPS, "seconds": run_s, "launches": run_launches,
@@ -1061,37 +1110,172 @@ def pic_large_grid_phase(torch, card):
                       "finite_steps": n_both, "max_step_stats_rel_diff":
                       step_diff, "plain_seconds": plain_run_s,
                       "launches": fit_launches},
-         big={"npoints": n_big, "markers": PIC_MPC * n_big,
-              "k3_vs_plain_max_abs_err": big_err, "k3_ms": big_ms,
-              "k3_plain_ms": big_plain_ms, "bound_ms": big_bound["bound_ms"],
-              "bound_by": big_bound["bound_by"],
-              "share_of_bound": big_bound["bound_ms"] / big_ms},
-         card=card)
+         sizes=[{k: v for k, v in z.items() if k != "launches"}
+                for z in sizes], cluster_shapes=cluster_shapes, card=card)
     limit.cancel()
     k2 = {"large_grid_npoints": n, "large_grid_ms": k2_ms,
           "large_grid_plain_ms": k2_plain_ms,
           "large_grid_bound_ms": k2_bound["bound_ms"],
           "large_grid_bound_by": k2_bound["bound_by"],
           "large_grid_share": k2_bound["bound_ms"] / k2_ms,
-          "large_grid_max_abs_err": k2_err}
+          "large_grid_max_abs_err": max([k2_err] + [z["k2_max_abs_err"]
+                                                    for z in sizes]),
+          "large_grid_sizes": [{
+              "npoints": z["npoints"], "form": z["form"],
+              "cluster": z["cluster"], "ms": z["k2_stage_ms"],
+              "plain_ms": z["k2_plain_ms"], "bound_ms": z["k2_bound_ms"],
+              "bound_by": z["k2_bound_by"],
+              "share": z["k2_bound_ms"] / z["k2_stage_ms"]} for z in sizes]}
     k3 = {"large_grid_npoints": n, "large_grid_ms": k3_ms,
           "large_grid_plain_ms": k3_plain_ms,
           "large_grid_bound_ms": k3_bound["bound_ms"],
           "large_grid_bound_by": k3_bound["bound_by"],
           "large_grid_share": k3_bound["bound_ms"] / k3_ms,
-          "large_grid_max_abs_err": max(k3_err, big_err),
+          "large_grid_max_abs_err": max([k3_err] + [z["k3_max_abs_err"]
+                                                    for z in sizes]),
           "large_grid_run_ms": run_ms,
           "large_grid_run_bound_ms": run_bound["bound_ms"],
           "large_grid_run_share": run_bound["bound_ms"] / run_ms,
-          "large_grid_32768_ms": big_ms,
-          "large_grid_32768_plain_ms": big_plain_ms,
-          "large_grid_32768_bound_ms": big_bound["bound_ms"]}
+          "large_grid_sizes": [{
+              "npoints": z["npoints"], "form": z["form"],
+              "cluster": z["cluster"], "clusters": z["clusters"],
+              "ms": z["k3_ms"], "plain_ms": z["k3_plain_ms"],
+              "bound_ms": z["bound_ms"], "bound_by": z["bound_by"],
+              "share": z["share_of_bound"],
+              "deposit_share": z["deposit"]["share"]} for z in sizes]}
     launches = {"pic_stage": k2_launches["pic_stage"],
                 "pic_field": k2_launches["pic_field"],
                 "pic_mega": run_launches["pic_mega"] + fit_launches["pic_mega"],
                 "grid_sync_probe": run_launches["grid_sync_probe"]
                 + fit_launches["grid_sync_probe"]}
+    for z in sizes:
+        for k, v in z["launches"].items():
+            launches[k] += v
     return k2, k3, launches
+
+
+def deposit_share(torch, cuda_pic, fs, qn, arrs, field, n_steps, k3_ms):
+    """K3 over ``n_steps`` with the marker pass's deposit left out
+    (csrc/pic.cu kPartNoDeposit): its ms, and the deposit's share of the
+    run's ``k3_ms`` by difference (its adds, not the barriers and the
+    partials around them, which both runs keep)."""
+    ms, _ = timed(lambda: cuda_pic._launch_mega(
+        True, fs.params, *field, qn, arrs, n_steps,
+        parts=3 | cuda_pic.PART_NO_DEPOSIT), torch)
+    return {"no_deposit_ms": ms, "share": 1.0 - ms / k3_ms}
+
+
+def large_grid_size(torch, cuda_pic, pic, from_config, dev, n, mpc, n_steps,
+                    card):
+    """One size of phase 23 past 16,384: the launch shape (the form, the
+    cluster size, the co-resident clusters and the SMs they cover), K4 at
+    that shape against its plain version, K3 against mega_ref over
+    ``n_steps`` and twice (eta bit-equal), the deposit's share of K3's
+    time, K2's stage 1 against stage_ref, and the run entry point, counted:
+    launch 'auto' (the self-check's K4, then K3 once) and 'stages' (K2), eta
+    bit-equal with K3.  Emits one pic_large_grid_size line; returns its
+    fields and the launches."""
+    f32 = torch.float32
+    what = f"npoints {n}"
+    p = from_config(load_cfg("tokamak", n), dtype=f32)
+    m = mpc * n
+    dt = large_dt(n)
+    s0 = pic.init_state(p, mpc, torch.Generator(device=dev).manual_seed(0),
+                        dtype=f32)
+    fs = cuda_pic.FusedStep(p, m, dt)
+    qn = pic.quasi_neutrality_coef(p, dtype=f32)
+    arrs = cuda_pic.state_to_arrs(s0)
+    field = (s0.field.real.contiguous(), s0.field.imag.contiguous())
+    shape = cuda_pic.mega_grid(dev, n, True)
+    form, cs = cuda_pic.form(n), cuda_pic.cluster_size(n)
+    check(shape["form"] == form and shape["cluster"] == cs
+          and shape["grid"] == shape["clusters"] * cs
+          and shape["partials"] == shape["clusters"]
+          and 0 < shape["grid"] <= shape["sms"]
+          and (cs > 1 or shape["grid"] == shape["sms"]),
+          f"{what}: form {form}, clusters of {cs}, the co-resident clusters "
+          f"times their size: {shape}")
+
+    # K4 at K3's launch shape, clusters included
+    x = torch.rand((shape["grid"], cuda_pic.THREADS), device=dev)
+    probe = cuda_pic.grid_sync_probe(x, cluster=cs)
+    torch.cuda.synchronize()
+    check(torch.equal(probe, cuda_pic.grid_sync_probe_ref(x)),
+          f"{what}: K4 at K3's shape ({shape['grid']} blocks in clusters of "
+          f"{cs}): every block saw every block's writes")
+    del x, probe
+
+    # K3 against mega_ref, the deposit's share
+    got, k3_err, k3_ms, k3_plain_ms = k3_vs_plain(
+        torch, cuda_pic, fs, qn, arrs, field, n_steps, what)
+    check(cuda_pic.LAST_MEGA_GRID == shape, f"{what}: K3 ran at its shape")
+    k3_eta = got[0]
+    k3_bnd = bound(k3_bytes(m, n_steps, nbytes(*field, qn, *arrs.values(),
+                                               *got)),
+                   k3_flop(pic_asymptotic_share(torch, cuda_pic, fs.params,
+                                                arrs), m, n_steps))
+    del got
+    deposit = deposit_share(torch, cuda_pic, fs, qn, arrs, field, n_steps,
+                            k3_ms)
+
+    # K2: stage 1 against stage_ref, after one plain step
+    eta, wre, wim, fr, fi, _ = cuda_pic.mega_ref(True, fs.params, *field, qn,
+                                                 arrs, 1)
+    arrs1 = dict(arrs, eta=eta, w_re=wre, w_im=wim)
+    args = (1, False, True, fs.params, fr, fi, qn, arrs1)
+    k2_got = cuda_pic.stage(*args)
+    k2_ref = cuda_pic.stage_ref(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(k2_got, k2_ref):
+        check(a.is_cuda and bool(torch.isfinite(a).all())
+              and rel_err(a, b) < STAGE_BAR,
+              f"{what}: K2 stage 1 vs plain {rel_err(a, b):.3e} < "
+              f"{STAGE_BAR}")
+    check(within_ulp(k2_got[2], k2_ref[2], torch),
+          f"{what}: K2 eta within 1 ulp of plain")
+    k2_err = max(float((a - b).abs().max()) for a, b in zip(k2_got, k2_ref))
+    k2_ms, _ = timed(lambda: cuda_pic.stage(*args), torch)
+    k2_plain_ms, _ = timed(lambda: cuda_pic.stage_ref(*args), torch)
+    asym1 = pic_asymptotic_share(torch, cuda_pic, fs.params, arrs1)
+    k2_bnd = bound(nbytes(fr, fi, qn, *arrs1.values(), *k2_got),
+                   m * by_branch(K2_FLOP_PER_MARKER_STAGE, asym1, "1"))
+    del arrs1, k2_got, k2_ref, eta, wre, wim, fr, fi
+
+    # the run entry point, counted: K4's self-check and K3 once, then K2
+    launches = {}
+    runs = {}
+    for path in ("auto", "stages"):
+        cuda_pic._SELFCHECK.clear()
+        for k in cuda_pic.LAUNCHES:
+            cuda_pic.LAUNCHES[k] = 0
+        _, s_run, _ = cuda_pic.run(p, mpc, n_steps, dt, state=s0, launch=path)
+        torch.cuda.synchronize()
+        runs[path] = dict(cuda_pic.LAUNCHES)
+        check(torch.equal(s_run.eta, k3_eta),
+              f"{what}, launch={path!r}: eta bit-equal to K3's")
+        del s_run
+        for k, v in runs[path].items():
+            launches[k] = launches.get(k, 0) + v
+    check(runs["auto"]["pic_mega"] == 1
+          and runs["auto"]["grid_sync_probe"] >= 1
+          and runs["stages"]["pic_stage"] == 3 * n_steps
+          == runs["stages"]["pic_field"],
+          f"{what}: the run took K4 and K3 once, launch='stages' K2 3 x "
+          f"{n_steps} times: {runs}")
+    out = {"npoints": n, "markers_per_cell": mpc, "markers": m, "dt": dt,
+           "steps": n_steps, "form": form, "cluster": cs,
+           "clusters": shape["clusters"], "sms_covered": shape["grid"],
+           "sms": shape["sms"], "registers": shape["registers"],
+           "smem": shape["smem"], "partials": shape["partials"],
+           "k3_max_abs_err": k3_err, "k3_ms": k3_ms,
+           "k3_plain_ms": k3_plain_ms, **k3_bnd,
+           "share_of_bound": k3_bnd["bound_ms"] / k3_ms, "deposit": deposit,
+           "k2_max_abs_err": k2_err, "k2_stage_ms": k2_ms,
+           "k2_plain_ms": k2_plain_ms, "k2_bound_ms": k2_bnd["bound_ms"],
+           "k2_bound_by": k2_bnd["bound_by"], "run_launches": runs}
+    emit("pic_large_grid_size", **out, card=card)
+    out["launches"] = launches
+    return out
 
 
 def compare_f64(p, eta_a, eta_b, omega, quad, torch, cuda_kappa):
@@ -2521,7 +2705,8 @@ def main():
         k.update(extra)
         if k["name"] in large_launches:
             k["launches"] += large_launches[k["name"]]
-            k["launches_from"] += (f" + npoints {LARGE_NF[0]} "
+            k["launches_from"] += (f" + npoints "
+                                   f"{', '.join(map(str, LARGE_NF))} "
                                    f"({large_launches[k['name']]})")
     # every kernel's launches on the driver's paths, from input files
     field_launches = drv_launches.pop("pic_field")

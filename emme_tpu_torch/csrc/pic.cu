@@ -64,11 +64,29 @@
 // chosen by nf alone (cuda_pic.form), never because a launch failed:
 //   kFormShared, nf <= kSharedNf: both in shared memory, 16 nf bytes (the
 //     small-grid build, the canonical case's);
-//   kFormHist, nf <= kHistNf: the histogram in shared memory, 8 nf bytes
-//     beside the reduce's 8 KB; the field planes read from device memory,
-//     2 nf floats that stay in L1 and L2 (K3's are written by its own
-//     reduce, so they are read with plain loads after the grid barrier,
-//     not through the read-only path);
+//   kFormCluster, nf <= kClusterNf: the histogram in the shared memory of a
+//     thread-block cluster of cs = 1, 2, 4 or 8 blocks (the smallest whose
+//     slice fits a block, cluster_of; cs = 1 up to kClusterSliceNf, a plain
+//     launch), the field planes read from device memory, 2 nf floats that
+//     stay in L1 and L2 (K3's are written by its own reduce, so they are read
+//     with plain loads after the grid barrier, not through the read-only
+//     path).  Rank r of a cluster holds the columns [r nf / cs, (r + 1) nf /
+//     cs) of both planes in its own shared memory; a marker's four adds go to
+//     the rank that owns the column (the CIC pair is adjacent, so both cells
+//     usually have one owner), through cluster.map_shared_rank where that
+//     rank is another block.  This is the Hopper counterpart of the TPU
+//     kernel's deposit accumulator, which stays in VMEM for the whole sweep
+//     (pallas_pic.py:7-8, 691-692): the adds stay on the SMs, where
+//     kFormGlobal sends them to L2.  One partial a cluster, partials
+//     (n_blocks / cs, 2, nf), each rank writing its own columns.  The
+//     barriers: cluster.sync() after the zeroing (no peer adds into a slice
+//     before it is zeroed) and before write_partials (every add has landed,
+//     and none comes later, so a block may leave the kernel or zero its slice
+//     again after it).  K3's grid is the co-resident clusters times cs
+//     (cudaOccupancyMaxActiveClusters), launched cooperatively with the
+//     cluster attribute: on an H100 132 blocks at cs = 1, 66 clusters of 2
+//     cover 132 SMs, 30 of 4 and 15 of 8 cover 120 (the GPCs' SM counts are
+//     uneven);
 //   kFormGlobal, above: each block deposits into its own row of a float32
 //     scratch (n_blocks, 2, nf) in device memory, read back through L2 by
 //     write_partials.
@@ -84,14 +102,25 @@ namespace {
 
 constexpr int kThreads = 1024;        // threads a block, every kernel here
 constexpr int kFormShared = 0;
-constexpr int kFormHist = 1;
+constexpr int kFormCluster = 1;
 constexpr int kFormGlobal = 2;
 constexpr int kSharedNf = 12288;      // 4 nf floats of shared memory: 192 KB
-constexpr int kHistNf = 27648;        // 2 nf floats: 216 KB, + 8 KB static
+// kFormCluster: a rank's slice is 2 nf / cs floats beside the reduce's 8 KB;
+// 28,032 columns fill a block (224,256 + 8,192 bytes), and a cluster has at
+// most 8 blocks (the portable limit), so the form reaches 224,256 points.
+constexpr int kClusterSliceNf = 28032;
+constexpr int kClusterMax = 8;
+constexpr int kClusterNf = 224256;
 constexpr int kTile = 32;             // columns a block reduces at a time
 // The most shared memory one block may have (a SM's 228 KB less the 1 KB the
 // runtime keeps), static and dynamic together.
 constexpr int kSmemPerBlock = 232448;
+// reduce_field's static shared memory: a double for each warp and column
+constexpr int kReduceSmem = kThreads / 32 * kTile * 8;
+static_assert(kClusterSliceNf == (kSmemPerBlock - kReduceSmem) / 8,
+              "a cluster rank's slice fills one block's shared memory");
+static_assert(kClusterNf == kClusterMax * kClusterSliceNf,
+              "kFormCluster ends at a full slice on each of kClusterMax ranks");
 
 // Which side of each Bessel function's |x| <= 8 split is compiled: 0, both
 // (every build the package loads); 1, the Taylor sums alone; 2, the
@@ -352,25 +381,20 @@ __device__ __forceinline__ StageOut stage_marker(
   return o;
 }
 
-__device__ __forceinline__ void deposit(float* hr, float* hi,
-                                        const StageOut& o) {
-  const float wl = 1.0f - o.w2;
-  atomicAdd(hr + o.i2, o.denr * wl);
-  atomicAdd(hr + o.ir, o.denr * o.w2);
-  atomicAdd(hi + o.i2, o.deni * wl);
-  atomicAdd(hi + o.ir, o.deni * o.w2);
-}
-
 // The field planes a stage gathers from and the histogram it deposits
-// into (hi = hr + nf).  kFormShared: shared memory laid out as field re,
-// im, histogram re, im; kFormHist: the field in device memory, the
-// histogram in shared memory; kFormGlobal: both in device memory, the
-// histogram the block's row of `scratch`.
+// into: hr and hi = hr + w hold the columns [rank w, (rank + 1) w).
+// kFormShared: shared memory laid out as field re, im, histogram re, im;
+// kFormGlobal: both in device memory, the histogram the block's row of
+// `scratch`; in these two w = nf and rank = 0.  kFormCluster: the field in
+// device memory, this block's slice of the cluster's histogram in shared
+// memory, w = nf / cs and rank the block's rank in its cluster.
 struct Planes {
   const float* fr;
   const float* fi;
   float* hr;
   float* hi;
+  int w;
+  int rank;
 };
 
 template <int FORM>
@@ -378,14 +402,47 @@ __device__ __forceinline__ Planes planes(float* smem, float* scratch,
                                          const float* fr, const float* fi,
                                          int nf) {
   if (FORM == kFormShared)
-    return {smem, smem + nf, smem + 2 * nf, smem + 3 * nf};
-  float* h = FORM == kFormHist
-      ? smem : scratch + static_cast<size_t>(blockIdx.x) * 2 * nf;
-  return {fr, fi, h, h + nf};
+    return {smem, smem + nf, smem + 2 * nf, smem + 3 * nf, nf, 0};
+  if (FORM == kFormCluster) {
+    cg::cluster_group cl = cg::this_cluster();
+    const int w = nf / static_cast<int>(cl.num_blocks());
+    return {fr, fi, smem, smem + w, w, static_cast<int>(cl.block_rank())};
+  }
+  float* h = scratch + static_cast<size_t>(blockIdx.x) * 2 * nf;
+  return {fr, fi, h, h + nf, nf, 0};
+}
+
+// Add (re, im) into column col of the cluster's histogram: into this
+// block's shared memory where it owns the column, else into the owner's
+// through distributed shared memory.
+__device__ __forceinline__ void cluster_add(const Planes& pl, int col,
+                                            float re, float im) {
+  const int owner = col / pl.w;
+  const int off = col - owner * pl.w;
+  float* h = owner == pl.rank
+      ? pl.hr : cg::this_cluster().map_shared_rank(pl.hr, owner);
+  atomicAdd(h + off, re);
+  atomicAdd(h + pl.w + off, im);
+}
+
+template <int FORM>
+__device__ __forceinline__ void deposit(const Planes& pl, const StageOut& o) {
+  const float wl = 1.0f - o.w2;
+  // a cluster of one block owns every column: no owner to work out
+  if (FORM == kFormCluster && cg::this_cluster().num_blocks() > 1) {
+    cluster_add(pl, o.i2, o.denr * wl, o.deni * wl);
+    cluster_add(pl, o.ir, o.denr * o.w2, o.deni * o.w2);
+    return;
+  }
+  atomicAdd(pl.hr + o.i2, o.denr * wl);
+  atomicAdd(pl.hr + o.ir, o.denr * o.w2);
+  atomicAdd(pl.hi + o.i2, o.deni * wl);
+  atomicAdd(pl.hi + o.ir, o.deni * o.w2);
 }
 
 // The start of a stage: kFormShared copies the field into shared memory;
-// every form zeroes the histogram.
+// every form zeroes its histogram (kFormCluster: the block's slice, and no
+// peer adds into it before the whole cluster has zeroed).
 template <int FORM>
 __device__ __forceinline__ void stage_begin(float* smem, const Planes& pl,
                                             const float* fr, const float* fi,
@@ -398,23 +455,42 @@ __device__ __forceinline__ void stage_begin(float* smem, const Planes& pl,
       smem[3 * nf + c] = 0.0f;
     }
   } else {
-    for (int c = threadIdx.x; c < 2 * nf; c += blockDim.x) pl.hr[c] = 0.0f;
+    for (int c = threadIdx.x; c < 2 * pl.w; c += blockDim.x) pl.hr[c] = 0.0f;
   }
-  __syncthreads();
+  if (FORM == kFormCluster)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
 }
 
 // First level of the deposit sum: the block's histogram becomes its float64
 // partial, partials (n_blocks, 2, nf).  A scratch row (kFormGlobal) took
-// its deposits as atomics in L2, so it is read from there.
+// its deposits as atomics in L2, so it is read from there.  kFormCluster:
+// one partial a cluster, partials (n_blocks / cs, 2, nf); after the
+// cluster barrier every add has landed and no block touches a peer's
+// shared memory again in this stage, so each rank writes its own columns
+// and may then leave the kernel or zero its slice for the next stage.
 template <int FORM>
-__device__ __forceinline__ void write_partials(const float* hist,
+__device__ __forceinline__ void write_partials(const Planes& pl,
                                                double* partials, int nf) {
+  if (FORM == kFormCluster) {
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();
+    double* part = partials
+        + static_cast<size_t>(blockIdx.x / cl.num_blocks()) * 2 * nf
+        + static_cast<size_t>(pl.rank) * pl.w;
+    for (int c = threadIdx.x; c < 2 * pl.w; c += blockDim.x) {
+      const int plane = c < pl.w ? 0 : 1;
+      part[plane * nf + c - plane * pl.w] = static_cast<double>(pl.hr[c]);
+    }
+    return;
+  }
   __syncthreads();
   const int ncol = 2 * nf;
   double* part = partials + static_cast<size_t>(blockIdx.x) * ncol;
   for (int c = threadIdx.x; c < ncol; c += blockDim.x)
-    part[c] = static_cast<double>(FORM == kFormGlobal ? __ldcg(hist + c)
-                                                      : hist[c]);
+    part[c] = static_cast<double>(FORM == kFormGlobal ? __ldcg(pl.hr + c)
+                                                      : pl.hr[c]);
 }
 
 // Second level: field = qn * sum over the partials (n_part, 2, nf), in a
@@ -490,9 +566,9 @@ pic_stage_kernel(Params P, const float* fr, const float* fi, Markers mk,
     eta_o[i] = o.eta;
     wre_o[i] = o.wre;
     wim_o[i] = o.wim;
-    deposit(pl.hr, pl.hi, o);
+    deposit<FORM>(pl, o);
   }
-  write_partials<FORM>(pl.hr, partials, nf);
+  write_partials<FORM>(pl, partials, nf);
 }
 
 // One block a tile of kTile columns.
@@ -518,11 +594,11 @@ struct MegaState {          // eta, wre, wim updated in place; vel, Carry
   float* dci;
 };
 
-template <int STAGE, bool FIRST, bool DC>
+template <int STAGE, bool FIRST, bool DC, int FORM>
 __device__ __forceinline__ void mega_markers(const Params& P, const Planes& pl,
                                              const Markers& mk,
                                              const MegaState& st, int m,
-                                             int nf) {
+                                             int nf, bool dep) {
   const int stride = gridDim.x * blockDim.x;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < m; i += stride) {
     Carry in = {};
@@ -549,7 +625,7 @@ __device__ __forceinline__ void mega_markers(const Params& P, const Planes& pl,
     st.eta[i] = o.eta;
     st.wre[i] = o.wre;
     st.wim[i] = o.wim;
-    deposit(pl.hr, pl.hi, o);
+    if (dep) deposit<FORM>(pl, o);
   }
 }
 
@@ -577,14 +653,17 @@ __device__ __forceinline__ void step_stats(const double* tile_stats,
   }
 }
 
-// Parts of a stage that `parts` switches on; a run has both.  Leaving one
-// out gives its share of the run's time by difference.
+// Parts of a stage that `parts` switches on; a run has both, and no
+// kPartNoDeposit.  Leaving one out gives its share of the run's time by
+// difference; kPartNoDeposit runs the marker pass without its deposit.
 constexpr int kPartMarkers = 1;
 constexpr int kPartReduce = 2;
+constexpr int kPartNoDeposit = 4;
 
 // fbuf: two field buffers of (2, nf); t reads buffer t % 2 (t == 0: the
 // initial field) and writes buffer (t + 1) % 2.  stats: (n_steps, 3).
-// scratch: (n_blocks, 2, nf) for kFormGlobal, else unused.
+// scratch: (n_blocks, 2, nf) for kFormGlobal, else unused.  partials: one
+// a block, one a cluster in kFormCluster.
 // One block in `spread` reduces, so that the reducing blocks sit on as many
 // SMs as there are tiles.
 template <bool DC, int FORM>
@@ -600,6 +679,10 @@ pic_mega_kernel(Params P, const float* fr_in, const float* fi_in,
   const int spread = max(1, grid_blocks / n_tiles);
   const bool reducer = (parts & kPartReduce) && blockIdx.x % spread == 0;
   const int n_reducers = (grid_blocks + spread - 1) / spread;
+  const int n_part = FORM == kFormCluster
+      ? grid_blocks / static_cast<int>(cg::this_cluster().num_blocks())
+      : grid_blocks;
+  const bool dep = !(parts & kPartNoDeposit);
   for (int t = 0; t < 3 * n_steps; ++t) {
     const int stage = t % 3;
     const float* cur = fbuf + (t % 2) * 2 * nf;
@@ -609,19 +692,19 @@ pic_mega_kernel(Params P, const float* fr_in, const float* fi_in,
     stage_begin<FORM>(smem, pl, fr, fi, nf);
     if (!(parts & kPartMarkers)) {
     } else if (t == 0) {
-      mega_markers<0, true, DC>(P, pl, mk, st, m, nf);
+      mega_markers<0, true, DC, FORM>(P, pl, mk, st, m, nf, dep);
     } else if (stage == 0) {
-      mega_markers<0, false, DC>(P, pl, mk, st, m, nf);
+      mega_markers<0, false, DC, FORM>(P, pl, mk, st, m, nf, dep);
     } else if (stage == 1) {
-      mega_markers<1, false, DC>(P, pl, mk, st, m, nf);
+      mega_markers<1, false, DC, FORM>(P, pl, mk, st, m, nf, dep);
     } else {
-      mega_markers<2, false, DC>(P, pl, mk, st, m, nf);
+      mega_markers<2, false, DC, FORM>(P, pl, mk, st, m, nf, dep);
     }
-    write_partials<FORM>(pl.hr, partials, nf);
+    write_partials<FORM>(pl, partials, nf);
     grid.sync();
     float* nxt = fbuf + ((t + 1) % 2) * 2 * nf;
     if (reducer)
-      reduce_field(partials, grid_blocks, qn, nxt, nxt + nf, nf,
+      reduce_field(partials, n_part, qn, nxt, nxt + nf, nf,
                    stage == 2 ? tile_stats : nullptr, blockIdx.x / spread,
                    n_reducers);
     grid.sync();
@@ -681,8 +764,18 @@ using StageFn = void (*)(Params, const float*, const float*, Markers,
                          float*, float*, double*, float*, int, int);
 
 int form_of(int nf) {
-  return nf <= kSharedNf ? kFormShared
-                         : (nf <= kHistNf ? kFormHist : kFormGlobal);
+  if (nf <= kSharedNf) return kFormShared;
+  return nf <= kClusterNf ? kFormCluster : kFormGlobal;
+}
+
+// The blocks of a cluster: in kFormCluster the smallest of 1, 2, 4, 8 whose
+// slice of nf / cs columns fits a block (nf % kTile == 0, so cs divides
+// nf); 1 in the other forms.
+int cluster_of(int nf) {
+  if (form_of(nf) != kFormCluster) return 1;
+  int cs = 1;
+  while (nf > cs * kClusterSliceNf) cs *= 2;
+  return cs;
 }
 
 template <int FORM>
@@ -705,7 +798,7 @@ StageFn stage_fn_form(int stage, int first, int dc) {
 StageFn stage_fn(int stage, int first, int dc, int nf) {
   switch (form_of(nf)) {
     case kFormShared: return stage_fn_form<kFormShared>(stage, first, dc);
-    case kFormHist: return stage_fn_form<kFormHist>(stage, first, dc);
+    case kFormCluster: return stage_fn_form<kFormCluster>(stage, first, dc);
     default: return stage_fn_form<kFormGlobal>(stage, first, dc);
   }
 }
@@ -719,38 +812,71 @@ const void* mega_fn_form(int dc) {
 const void* mega_fn(int dc, int nf) {
   switch (form_of(nf)) {
     case kFormShared: return mega_fn_form<kFormShared>(dc);
-    case kFormHist: return mega_fn_form<kFormHist>(dc);
+    case kFormCluster: return mega_fn_form<kFormCluster>(dc);
     default: return mega_fn_form<kFormGlobal>(dc);
   }
 }
 
 // The dynamic shared memory a stage's form needs.
 size_t smem_bytes(int nf) {
-  const int floats[] = {4, 2, 0};
-  return static_cast<size_t>(floats[form_of(nf)]) * nf * sizeof(float);
+  const int floats[] = {4 * nf, 2 * (nf / cluster_of(nf)), 0};
+  return static_cast<size_t>(floats[form_of(nf)]) * sizeof(float);
 }
 
 bool bad_nf(int nf) { return nf < kTile || nf % kTile; }
 
-// Launch fn with `bytes` of dynamic shared memory (more than 48 KB needs the
-// attribute), cooperatively or not.
-cudaError_t launch(const void* fn, int grid, size_t bytes, bool cooperative,
-                   void** args, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeCooperative;
-  attr.val.cooperative = cooperative ? 1 : 0;
+// The launch configuration of fn: `grid` blocks of kThreads with `bytes` of
+// dynamic shared memory, cooperative or not, in clusters of `cluster`
+// blocks where cluster > 1.  attrs: room for two attributes.
+cudaLaunchConfig_t launch_config(int grid, size_t bytes, bool cooperative,
+                                 int cluster, cudaLaunchAttribute* attrs,
+                                 void* stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = &attr;
+  cfg.attrs = attrs;
+  attrs[0].id = cudaLaunchAttributeCooperative;
+  attrs[0].val.cooperative = cooperative ? 1 : 0;
   cfg.numAttrs = 1;
+  if (cluster > 1) {
+    attrs[1].id = cudaLaunchAttributeClusterDimension;
+    attrs[1].val.clusterDim.x = cluster;
+    attrs[1].val.clusterDim.y = 1;
+    attrs[1].val.clusterDim.z = 1;
+    cfg.numAttrs = 2;
+  }
+  return cfg;
+}
+
+// Launch fn with `bytes` of dynamic shared memory (more than 48 KB needs the
+// attribute), cooperatively or not, in clusters of `cluster` blocks.  A
+// launch the runtime refuses returns its error; nothing is launched in its
+// place.
+cudaError_t launch(const void* fn, int grid, size_t bytes, bool cooperative,
+                   int cluster, void** args, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attrs[2];
+  const cudaLaunchConfig_t cfg =
+      launch_config(grid, bytes, cooperative, cluster, attrs, stream);
   e = cudaLaunchKernelExC(&cfg, fn, args);
   return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// How many clusters of `cluster` blocks of fn with `bytes` of dynamic
+// shared memory are co-resident on the device.
+cudaError_t active_clusters(const void* fn, size_t bytes, int cluster,
+                            int* clusters) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attrs[2];
+  const cudaLaunchConfig_t cfg =
+      launch_config(cluster, bytes, false, cluster, attrs, nullptr);
+  return cudaOccupancyMaxActiveClusters(clusters, fn, &cfg);
 }
 
 // How many blocks of fn with `bytes` of dynamic shared memory are
@@ -792,30 +918,44 @@ Params load_params(const float* params) {
 extern "C" {
 
 int pic_form(int nf) { return bad_nf(nf) ? -1 : form_of(nf); }
+int pic_cluster_size(int nf) { return bad_nf(nf) ? -1 : cluster_of(nf); }
 int pic_params_len() { return kParams; }
 int pic_threads() { return kThreads; }
 int pic_tile() { return kTile; }
 
 // K2's grid for (stage, first, dc, m, nf): one block per kThreads markers, at
-// most the co-resident count; 0 on a bad argument or a CUDA error.
+// most the co-resident count; in kFormCluster a multiple of the cluster
+// size, at most the co-resident clusters' blocks.  0 on a bad argument or a
+// CUDA error.
 int pic_stage_grid(int stage, int first, int dc, int m, int nf) {
   if (bad_nf(nf) || m < 1) return 0;
   StageFn fn = stage_fn(stage, first, dc, nf);
   if (fn == nullptr) return 0;
-  int per_sm = 0, sms = 0;
-  if (resident_blocks(reinterpret_cast<const void*>(fn), smem_bytes(nf),
-                      &per_sm, &sms) != cudaSuccess)
-    return 0;
-  const long long want = (static_cast<long long>(m) + kThreads - 1) / kThreads;
-  const long long cap = static_cast<long long>(per_sm) * sms;
+  const void* f = reinterpret_cast<const void*>(fn);
+  const int cs = cluster_of(nf);
+  long long want = (static_cast<long long>(m) + kThreads - 1) / kThreads;
+  long long cap = 0;
+  if (cs > 1) {
+    int clusters = 0;
+    if (active_clusters(f, smem_bytes(nf), cs, &clusters) != cudaSuccess)
+      return 0;
+    want = (want + cs - 1) / cs * cs;
+    cap = static_cast<long long>(clusters) * cs;
+  } else {
+    int per_sm = 0, sms = 0;
+    if (resident_blocks(f, smem_bytes(nf), &per_sm, &sms) != cudaSuccess)
+      return 0;
+    cap = static_cast<long long>(per_sm) * sms;
+  }
   return static_cast<int>(want < cap ? want : cap);
 }
 
-// One K2 stage over m markers with n_blocks blocks (pic_stage_grid).
+// One K2 stage over m markers with n_blocks blocks (pic_stage_grid), in
+// clusters of pic_cluster_size(nf) blocks.
 // params: kParams host floats.  vpre / vpim: stage 1's velocity, stage 2 only
-// (else may be null).  partials: (n_blocks, 2, nf) device doubles.
-// scratch: (n_blocks, 2, nf) device floats where pic_form(nf) is
-// kFormGlobal, else may be null.
+// (else may be null).  partials: (n_blocks / pic_cluster_size(nf), 2, nf)
+// device doubles.  scratch: (n_blocks, 2, nf) device floats where
+// pic_form(nf) is kFormGlobal, else may be null.
 int pic_stage_launch(int stage, int first, int dc, const float* params,
                      const float* fr, const float* fi, const float* eta,
                      const float* vpar, const float* vperp, const float* wre,
@@ -826,6 +966,7 @@ int pic_stage_launch(int stage, int first, int dc, const float* params,
                      float* scratch, int m, int nf, int n_blocks,
                      void* stream) {
   if (bad_nf(nf) || m < 1 || n_blocks < 1 ||
+      n_blocks % cluster_of(nf) ||
       (stage == 2 && (vpre == nullptr || vpim == nullptr)) ||
       (form_of(nf) == kFormGlobal && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -836,7 +977,8 @@ int pic_stage_launch(int stage, int first, int dc, const float* params,
   void* args[] = {&P, &fr, &fi, &mk, &vpre, &vpim, &velre_o, &velim_o,
                   &eta_o, &wre_o, &wim_o, &partials, &scratch, &m, &nf};
   return static_cast<int>(launch(reinterpret_cast<const void*>(fn), n_blocks,
-                                 smem_bytes(nf), false, args, stream));
+                                 smem_bytes(nf), false, cluster_of(nf), args,
+                                 stream));
 }
 
 // The field after a K2 stage: fro/fio[c] = qn[c] * sum_q partials[q, :, c].
@@ -850,15 +992,17 @@ int pic_field_launch(const double* partials, int n_part, const float* qn,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3's co-resident grid at nf: the SM count, the grid (one block a SM), the
-// dynamic shared memory (kFormShared: a SM's whole share, so that exactly
-// one block sits on a SM; the other forms: what they need, which leaves the
-// rest of the SM's 256 KB to L1 for the field planes; 1024 threads of 58+
-// registers fit one block a SM anyway), the kernel's registers and the
-// device's cooperative-launch attribute.  grid is 0 where no block fits.
+// K3's co-resident grid at nf: the SM count, the grid (one block a SM; in
+// kFormCluster the co-resident clusters times their size, which may leave
+// SMs idle), the dynamic shared memory (kFormShared: a SM's whole share, so
+// that exactly one block sits on a SM; the other forms: what they need,
+// which leaves the rest of the SM's 256 KB to L1 for the field planes; 1024
+// threads of 58+ registers fit one block a SM anyway), the kernel's
+// registers, the device's cooperative-launch attribute, the cluster size
+// and the clusters (grid / cluster).  grid is 0 where no block fits.
 // Returns a CUDA error code.
 int pic_mega_grid(int dc, int nf, int* sms, int* grid, int* smem,
-                  int* registers, int* coop) {
+                  int* registers, int* coop, int* cluster, int* clusters) {
   if (bad_nf(nf)) return static_cast<int>(cudaErrorInvalidValue);
   const void* fn = mega_fn(dc, nf);
   int dev = 0;
@@ -872,22 +1016,28 @@ int pic_mega_grid(int dc, int nf, int* sms, int* grid, int* smem,
     e = one_block_smem(fn, &bytes);
   int per_sm = 0;
   if (e == cudaSuccess) e = resident_blocks(fn, bytes, &per_sm, sms);
+  *cluster = cluster_of(nf);
+  *clusters = 0;
+  if (e == cudaSuccess && *cluster > 1)
+    e = active_clusters(fn, bytes, *cluster, clusters);
   if (e != cudaSuccess) return static_cast<int>(e);
   *registers = fa.numRegs;
-  *grid = per_sm > 0 ? *sms : 0;
+  if (*cluster == 1) *clusters = per_sm > 0 ? *sms : 0;
+  *grid = *clusters * *cluster;
   *smem = static_cast<int>(bytes);
   return static_cast<int>(cudaSuccess);
 }
 
 // The whole run: n_steps x 3 stages in one cooperative launch of `grid`
 // blocks with `smem` bytes of dynamic shared memory (both from
-// pic_mega_grid).  eta, wre, wim are updated in place; velre / velim: (m,)
-// scratch; carry: (3, m) scratch; partials: (grid, 2, nf) doubles; fbuf:
+// pic_mega_grid), in clusters of pic_cluster_size(nf) blocks.  eta, wre,
+// wim are updated in place; velre / velim: (m,) scratch; carry: (3, m)
+// scratch; partials: (grid / pic_cluster_size(nf), 2, nf) doubles; fbuf:
 // (2, 2, nf); tile_stats: (2 nf / pic_tile(), 2) doubles; stats:
 // (n_steps, 3); scratch: (grid, 2, nf) floats where pic_form(nf) is
 // kFormGlobal, else may be null.  The final field is in fbuf buffer
 // (3 n_steps) % 2.  parts: 3 for a run (1: the marker pass, 2: the field
-// reduce).
+// reduce, + 4: the marker pass without its deposit).
 int pic_mega_launch(int dc, const float* params, const float* fr_in,
                     const float* fi_in, const float* qn, float* eta,
                     const float* vpar, const float* vperp, float* wre,
@@ -897,7 +1047,8 @@ int pic_mega_launch(int dc, const float* params, const float* fr_in,
                     float* stats, float* scratch, int n_steps, int m, int nf,
                     int grid, int smem, int parts, void* stream) {
   if (bad_nf(nf) || m < 1 || n_steps < 1 || grid < 1 ||
-      smem < static_cast<int>(smem_bytes(nf)) || parts < 0 || parts > 3 ||
+      grid % cluster_of(nf) || smem < static_cast<int>(smem_bytes(nf)) ||
+      parts < 0 || parts > 7 ||
       (form_of(nf) == kFormGlobal && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params P = load_params(params);
@@ -906,25 +1057,28 @@ int pic_mega_launch(int dc, const float* params, const float* fr_in,
                   carry + 2 * static_cast<size_t>(m)};
   void* args[] = {&P, &fr_in, &fi_in, &qn, &mk, &st, &partials, &fbuf,
                   &tile_stats, &stats, &scratch, &n_steps, &m, &nf, &parts};
-  return static_cast<int>(launch(mega_fn(dc, nf), grid, smem, true, args,
-                                 stream));
+  return static_cast<int>(launch(mega_fn(dc, nf), grid, smem, true,
+                                 cluster_of(nf), args, stream));
 }
 
 // K4: `rounds` rounds over n_blocks blocks, each on `slice` floats, with a
 // SM's whole share of shared memory, so that the blocks are co-resident as
-// K3's are.  x is read in place; buf_a and buf_b are scratch; the result is
-// in buf_a for odd rounds, buf_b for even.
+// K3's are, in clusters of `cluster` blocks as K3's (1: no cluster).  x is
+// read in place; buf_a and buf_b are scratch; the result is in buf_a for
+// odd rounds, buf_b for even.
 int grid_sync_probe_launch(const float* x, float* buf_a, float* buf_b,
                            int n_blocks, int slice, int rounds, int copy,
-                           void* stream) {
-  if (n_blocks < 1 || slice < 1 || rounds < 1)
+                           int cluster, void* stream) {
+  if (n_blocks < 1 || slice < 1 || rounds < 1 || cluster < 1 ||
+      cluster > kClusterMax || n_blocks % cluster)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* fn = reinterpret_cast<const void*>(grid_sync_probe_kernel);
   size_t bytes = 0;
   const cudaError_t e = one_block_smem(fn, &bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   void* args[] = {&x, &buf_a, &buf_b, &slice, &rounds, &copy};
-  return static_cast<int>(launch(fn, n_blocks, bytes, true, args, stream));
+  return static_cast<int>(launch(fn, n_blocks, bytes, true, cluster, args,
+                                 stream));
 }
 
 }  // extern "C"

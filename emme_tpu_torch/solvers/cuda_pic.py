@@ -12,11 +12,11 @@ Counterpart of ``emme_tpu/solvers/pallas_pic.py``.  The kernels
 * K3, the whole run, n_steps x 3 stages, in one persistent cooperative
   launch (Pallas ``_mega_kernel``), J0 and the drift-center phase factor
   carried from stage to stage.  ``mega`` runs it; ``mega_grid`` reports the
-  launch shape (one block of 1024 threads a SM) and ``LAST_MEGA_GRID`` the
-  one the last launch took.
+  launch shape (one block of 1024 threads a SM, in clusters in
+  ``FORM_CLUSTER``) and ``LAST_MEGA_GRID`` the one the last launch took.
 * K4, the grid-sync probe (Pallas ``alias_carry_probe``): a cooperative
-  launch at K3's grid and co-residency in which each round after the first
-  reads what another block wrote before the grid barrier.
+  launch at K3's grid, clusters and co-residency in which each round after
+  the first reads what another block wrote before the grid barrier.
   ``grid_sync_probe`` runs it; ``grid_sync_selfcheck`` runs it once per
   process, with the co-residency check of K3's grid.
 
@@ -34,8 +34,11 @@ K2 and K3 take any npoints that is a multiple of 32 (``run``, as the Pallas
 path, a multiple of 128); device memory is the only other limit.  Where a
 stage keeps the field and the deposit histogram is its form, chosen by
 npoints alone (``form``): up to ``SHARED_NF`` both in shared memory (the
-small-grid build), up to ``HIST_NF`` the histogram alone, above that a
-float32 scratch row a block in device memory.
+small-grid build), up to ``CLUSTER_NF`` the histogram alone, in the
+shared memory of a thread-block cluster of ``cluster_size(npoints)``
+blocks (each holds ``npoints / cluster_size`` columns of both planes; one
+block, a plain launch, up to ``CLUSTER_SLICE_NF``), above that a float32
+scratch row a block in device memory.
 """
 
 from __future__ import annotations
@@ -59,11 +62,16 @@ LAST_LAUNCH: str | None = None
 # the launch shape (``mega_grid``) of the last K3 launch
 LAST_MEGA_GRID: dict | None = None
 
-# csrc/pic.cu kFormShared / kFormHist / kFormGlobal and the largest nf of
-# the first two: 4 nf floats of shared memory (192 KB), 2 nf floats (216 KB)
-FORM_SHARED, FORM_HIST, FORM_GLOBAL = 0, 1, 2
+# csrc/pic.cu kFormShared / kFormCluster / kFormGlobal and the largest nf of
+# the first: 4 nf floats of shared memory (192 KB)
+FORM_SHARED, FORM_CLUSTER, FORM_GLOBAL = 0, 1, 2
 SHARED_NF = 12288
-HIST_NF = 27648
+# kFormCluster: the columns a cluster rank's slice holds at most (2 floats a
+# column beside the reduce's 8 KB fill a block's 232,448 bytes), the largest
+# cluster (the portable limit) and the largest nf of the form
+CLUSTER_SLICE_NF = 28032
+CLUSTER_MAX = 8
+CLUSTER_NF = CLUSTER_MAX * CLUSTER_SLICE_NF
 # csrc/pic.cu kThreads: threads a block.  K3 runs one such block a SM, the
 # fastest of the shapes measured on an H100 (PERF.md section 6): few blocks
 # make the grid barrier and the partials cheap, and 64 registers a thread
@@ -71,6 +79,8 @@ HIST_NF = 27648
 THREADS = 1024
 TILE = 32               # csrc/pic.cu kTile: columns a block reduces at a time
 PROBE_ROUNDS = 3        # x -> a, barrier, a -> b, barrier, b -> a
+# csrc/pic.cu kPartNoDeposit: K3's marker pass without its deposit
+PART_NO_DEPOSIT = 4
 
 # scalar block layout (csrc/pic.cu kP_*)
 (P_L, P_CW, P_VT, P_BT, P_SHAT, P_ODB, P_QR, P_I2CW, P_SUBDT) = range(9)
@@ -88,10 +98,23 @@ _F32 = torch.float32
 
 def form(nf: int) -> int:
     """Where K2 and K3 keep the field and the histogram at ``nf`` grid
-    points (csrc/pic.cu form_of): ``FORM_SHARED``, ``FORM_HIST`` or
+    points (csrc/pic.cu form_of): ``FORM_SHARED``, ``FORM_CLUSTER`` or
     ``FORM_GLOBAL``."""
-    return FORM_SHARED if nf <= SHARED_NF else (
-        FORM_HIST if nf <= HIST_NF else FORM_GLOBAL)
+    if nf <= SHARED_NF:
+        return FORM_SHARED
+    return FORM_CLUSTER if nf <= CLUSTER_NF else FORM_GLOBAL
+
+
+def cluster_size(nf: int) -> int:
+    """The blocks of a K2 / K3 cluster at ``nf`` grid points (csrc/pic.cu
+    cluster_of): in ``FORM_CLUSTER`` the smallest of 1, 2, 4, 8 whose
+    slice of nf / cs columns fits one block, else 1."""
+    if form(nf) != FORM_CLUSTER:
+        return 1
+    cs = 1
+    while nf > cs * CLUSTER_SLICE_NF:
+        cs *= 2
+    return cs
 
 
 class FusedStep:
@@ -394,6 +417,7 @@ def _library():
         pci = ctypes.POINTER(ctypes.c_int)
         sigs = {
             "pic_form": ([ci], ci),
+            "pic_cluster_size": ([ci], ci),
             "pic_params_len": ([], ci),
             "pic_threads": ([], ci),
             "pic_tile": ([], ci),
@@ -401,17 +425,21 @@ def _library():
             "pic_stage_launch": ([ci, ci, ci] + [vp] * 20 + [ci] * 3 + [vp],
                                  ci),
             "pic_field_launch": ([vp, ci, vp, vp, vp, ci, vp], ci),
-            "pic_mega_grid": ([ci] * 2 + [pci] * 5, ci),
+            "pic_mega_grid": ([ci] * 2 + [pci] * 7, ci),
             "pic_mega_launch": ([ci] + [vp] * 20 + [ci] * 6 + [vp], ci),
-            "grid_sync_probe_launch": ([vp, vp, vp] + [ci] * 4 + [vp], ci),
+            "grid_sync_probe_launch": ([vp, vp, vp] + [ci] * 5 + [vp], ci),
         }
         for name, (args, res) in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, res
         if (lib.pic_params_len(), lib.pic_threads(), lib.pic_tile()) \
                 != (N_PARAMS, THREADS, TILE) \
-                or any(lib.pic_form(nf) != form(nf) for nf in (
-                    SHARED_NF, SHARED_NF + TILE, HIST_NF, HIST_NF + TILE)):
+                or any((lib.pic_form(nf), lib.pic_cluster_size(nf))
+                       != (form(nf), cluster_size(nf)) for nf in (
+                    SHARED_NF, SHARED_NF + TILE, CLUSTER_SLICE_NF,
+                    CLUSTER_SLICE_NF + TILE, 2 * CLUSTER_SLICE_NF, 2 * CLUSTER_SLICE_NF + TILE,
+                    4 * CLUSTER_SLICE_NF + TILE, CLUSTER_NF,
+                    CLUSTER_NF + TILE)):
             raise RuntimeError("csrc/pic.cu constants disagree with "
                                "cuda_pic.py")
     return lib
@@ -479,7 +507,7 @@ def _ptr(t):
 
 def _launch_stage(stage_idx, first, dc, params, fr, fi, arrs, vel_prev):
     """K2's first launch on the card: (vel_re, vel_im, eta, w_re, w_im,
-    partials (n_blocks, 2, nf) float64)."""
+    partials (n_blocks / cluster_size(nf), 2, nf) float64)."""
     dev, nf, m = fr.device, fr.shape[0], arrs["eta"].shape[0]
     lib = _library()
     params = _params_host(params)
@@ -489,8 +517,8 @@ def _launch_stage(stage_idx, first, dc, params, fr, fi, arrs, vel_prev):
             raise RuntimeError(f"pic_stage: no grid for stage {stage_idx}, "
                                f"first={first}, dc={dc}, m={m}, nf={nf}")
         outs = [torch.empty(m, dtype=_F32, device=dev) for _ in range(5)]
-        partials = torch.empty((n_blocks, 2, nf), dtype=torch.float64,
-                               device=dev)
+        partials = torch.empty((n_blocks // cluster_size(nf), 2, nf),
+                               dtype=torch.float64, device=dev)
         scratch = _scratch(n_blocks, nf, dev)
         vpre, vpim = vel_prev if vel_prev is not None else (None, None)
         err = lib.pic_stage_launch(
@@ -523,24 +551,27 @@ def _launch_field(partials, qn):
 
 def mega_grid(device, nf: int, dc: bool) -> dict:
     """K3's launch shape on ``device``: {"sms", "grid" (co-resident blocks,
-    one a SM; 0 where none fits), "threads", "partials" (one a block),
-    "smem" (bytes of dynamic shared memory: a SM's whole share in
-    ``FORM_SHARED``, what the form needs in the others), "registers",
-    "cooperative", "form"}."""
-    out = [ctypes.c_int() for _ in range(5)]
+    one a SM; in ``FORM_CLUSTER`` the co-resident clusters times their size,
+    which may leave SMs out; 0 where none fits), "threads", "cluster" (blocks
+    a cluster, 1 outside ``FORM_CLUSTER``), "clusters" (grid / cluster),
+    "partials" (one a cluster: grid / cluster), "smem" (bytes of dynamic
+    shared memory: a SM's whole share in ``FORM_SHARED``, what the form
+    needs in the others), "registers", "cooperative", "form"}."""
+    out = [ctypes.c_int() for _ in range(7)]
     with torch.cuda.device(device):
         err = _library().pic_mega_grid(int(dc), nf,
                                        *(ctypes.byref(v) for v in out))
     _raise_on(err, "pic_mega occupancy query")
-    sms, grid, smem, regs, coop = (v.value for v in out)
-    return {"sms": sms, "grid": grid, "threads": THREADS, "partials": grid,
-            "smem": smem, "registers": regs, "cooperative": bool(coop),
-            "form": form(nf)}
+    sms, grid, smem, regs, coop, cluster, clusters = (v.value for v in out)
+    return {"sms": sms, "grid": grid, "threads": THREADS, "cluster": cluster,
+            "clusters": clusters, "partials": grid // cluster, "smem": smem,
+            "registers": regs, "cooperative": bool(coop), "form": form(nf)}
 
 
 def _launch_mega(dc, params, fr, fi, qn, arrs, n_steps, parts=3):
     """K3 on the card.  ``parts``: 3 for a run; 1 leaves the field reduce
-    out and 2 the marker pass, to time each by difference."""
+    out and 2 the marker pass, and ``| PART_NO_DEPOSIT`` the marker pass's
+    deposit, to time each by difference."""
     global LAST_MEGA_GRID
     dev, nf, m = fr.device, fr.shape[0], arrs["eta"].shape[0]
     shape = mega_grid(dev, nf, dc)
@@ -568,22 +599,24 @@ def _launch_mega(dc, params, fr, fi, qn, arrs, n_steps, parts=3):
             carry.data_ptr(), partials.data_ptr(), fbuf.data_ptr(),
             tile_stats.data_ptr(), stats.data_ptr(), _ptr(scratch), n_steps,
             m, nf, shape["grid"], shape["smem"], parts, _stream(dev))
-    _raise_on(err, f"pic_mega cooperative launch ({shape['grid']} blocks)")
+    _raise_on(err, f"pic_mega cooperative launch ({shape['grid']} blocks "
+                   f"in clusters of {shape['cluster']})")
     LAUNCHES["pic_mega"] += 1
     LAST_MEGA_GRID = shape
     out = fbuf[(3 * n_steps) % 2]
     return eta, wre, wim, out[0], out[1], stats
 
 
-def _launch_probe(x, rounds, copy):
+def _launch_probe(x, rounds, copy, cluster):
     dev = x.device
     nblocks, slice_ = x.shape
     bufs = torch.empty((2, nblocks, slice_), dtype=_F32, device=dev)
     with torch.cuda.device(dev):
         err = _library().grid_sync_probe_launch(
             x.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(), nblocks,
-            slice_, rounds, int(copy), _stream(dev))
-    _raise_on(err, f"grid_sync_probe cooperative launch ({nblocks} blocks)")
+            slice_, rounds, int(copy), cluster, _stream(dev))
+    _raise_on(err, f"grid_sync_probe cooperative launch ({nblocks} blocks "
+                   f"in clusters of {cluster})")
     LAUNCHES["grid_sync_probe"] += 1
     return bufs[(rounds + 1) % 2]
 
@@ -628,19 +661,25 @@ def mega(dc: bool, params, fr, fi, qn, arrs, n_steps: int):
     return _launch_mega(dc, params, fr, fi, qn, arrs, n_steps)
 
 
-def grid_sync_probe(x, rounds: int = PROBE_ROUNDS, copy: bool = True):
+def grid_sync_probe(x, rounds: int = PROBE_ROUNDS, copy: bool = True,
+                    cluster: int = 1):
     """K4 on (nblocks, slice) float32 x, one cooperative block of
-    ``THREADS`` threads per row, one block a SM as K3 runs.  ``copy=False``
-    runs the launch and its barriers without the loads and stores (its
-    result is scratch): the floor of the kernel's time, and at two round
-    counts the cost of a grid barrier."""
+    ``THREADS`` threads per row, one block a SM as K3 runs, in clusters of
+    ``cluster`` blocks as K3's ``FORM_CLUSTER`` launch (1: none).
+    ``copy=False`` runs the launch and its barriers without the loads and
+    stores (its result is scratch): the floor of the kernel's time, and at
+    two round counts the cost of a grid barrier."""
     if x.dim() != 2 or rounds < 1:
         raise ValueError("grid_sync_probe takes (nblocks, slice) and rounds "
                          ">= 1")
+    if cluster not in (1, 2, 4, CLUSTER_MAX) or x.shape[0] % cluster:
+        raise ValueError(f"grid_sync_probe: clusters of 1, 2, 4 or "
+                         f"{CLUSTER_MAX} blocks that divide nblocks, got "
+                         f"{cluster} for {x.shape[0]}")
     _check("x", x, x.shape, x.device)
     if not _route(x.device):
         return grid_sync_probe_ref(x, rounds)
-    return _launch_probe(x, rounds, copy)
+    return _launch_probe(x, rounds, copy, cluster)
 
 
 _SELFCHECK: dict = {}
@@ -649,17 +688,18 @@ _SELFCHECK: dict = {}
 def grid_sync_selfcheck(device, nf: int, dc: bool):
     """Once per process and (device, nf, dc): can K3 run?  On the card:
     the cooperative-launch attribute, K3's co-resident grid at nf, and K4
-    at that grid.  On the CPU the plain probe stands in.  Returns (ok,
-    info) with info["reason"] set when not ok."""
+    at that grid and cluster size (the runtime takes the cooperative and
+    the cluster attributes together).  On the CPU the plain probe stands
+    in.  Returns (ok, info) with info["reason"] set when not ok."""
     device = torch.device(device)
     key = (str(device), nf, dc)
     if key not in _SELFCHECK:
         info = {"reason": None}
-        n_blocks = 4
+        n_blocks, cluster = 4, 1
         if _route(device):
             shape = mega_grid(device, nf, dc)
             info.update(shape)
-            n_blocks = shape["grid"]
+            n_blocks, cluster = shape["grid"], shape["cluster"]
             if not shape["cooperative"]:
                 info["reason"] = "the device has no cooperative launch"
             elif n_blocks < 1:
@@ -668,7 +708,8 @@ def grid_sync_selfcheck(device, nf: int, dc: bool):
             gen = torch.Generator(device=device).manual_seed(0)
             x = torch.rand((n_blocks, THREADS), generator=gen, dtype=_F32,
                            device=device)
-            if not torch.equal(grid_sync_probe(x), grid_sync_probe_ref(x)):
+            if not torch.equal(grid_sync_probe(x, cluster=cluster),
+                               grid_sync_probe_ref(x)):
                 info["reason"] = ("the grid-sync probe failed: a block did "
                                   "not see another block's writes")
         _SELFCHECK[key] = (info["reason"] is None, info)

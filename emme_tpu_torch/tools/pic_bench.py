@@ -3,6 +3,7 @@ sorted-window paths, at the canonical size on one NVIDIA GPU, one JSON line
 per measurement.
 
     python3 emme_tpu_torch/tools/pic_bench.py [--root DIR ...] [--sweep]
+        [--large]
 
 ``--root DIR`` measures the ``emme_tpu_torch`` package of another checkout
 (for example the parent commit unpacked beside this one); several roots run
@@ -14,6 +15,11 @@ of the kernels' outputs, so that two versions can be compared bit for bit.
 ``--sweep`` also times K3's canonical run with the marker pass or the field
 reduce left out, and K4 without its copies at 1 and 1081 rounds (the cost
 of a grid barrier at K3's grid).
+
+``--large`` also times K3 over 8 steps at npoints 16,384, 32,768 and 65,536
+(1024 markers per cell, dt 0.25 x 1024 / npoints), with its launch shape,
+its output digests and, where the root has it, K3 without its deposit; and
+K2's stage 1 at 32,768.
 """
 
 import argparse
@@ -27,6 +33,9 @@ import sys
 HERE = pathlib.Path(__file__).resolve()
 CASE = dict(npoints=1024, mpc=1024, steps=180, dt=0.25)   # benchmarks/bench_pic.py
 BARRIER_ROUNDS = 1081   # two barriers a stage, 540 stages, and one
+LARGE_NF = (16384, 32768, 65536)
+LARGE_STEPS = 8
+K2_LARGE_NF = 32768
 
 
 def emit(**fields):
@@ -60,7 +69,7 @@ def summary(times):
             "reps": len(times)}
 
 
-def measure(root, sweep):
+def measure(root, sweep, large):
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("pic_bench: needs an NVIDIA GPU")
@@ -141,6 +150,9 @@ def measure(root, sweep):
     emit(what="k4_probe", selfcheck=ok, rounds=cuda_pic.PROBE_ROUNDS,
          **summary(k4), plain_ms_median=statistics.median(plain), **shape,
          **tag)
+    if large:
+        for n in LARGE_NF:
+            measure_large(torch, cfg, n, tag)
     if not sweep:
         return
 
@@ -166,17 +178,75 @@ def measure(root, sweep):
              **tag)
 
 
+def measure_large(torch, cfg, n, tag):
+    """K3 over LARGE_STEPS at npoints n (and K2's stage 1 at K2_LARGE_NF),
+    1024 markers per cell, in the root's package."""
+    from emme_tpu_torch import from_config
+    from emme_tpu_torch.solvers import cuda_pic, pic
+    dev, f32 = torch.device("cuda"), torch.float32
+    mpc = CASE["mpc"]
+    p = from_config(dict(cfg, npoints=n), dtype=f32, device=dev)
+    m, dt = mpc * n, CASE["dt"] * CASE["npoints"] / n
+    s0 = pic.init_state(p, mpc, torch.Generator(device=dev).manual_seed(1),
+                        dtype=f32)
+    fs = cuda_pic.FusedStep(p, m, dt)
+    qn = pic.quasi_neutrality_coef(p, dtype=f32)
+    arrs = cuda_pic.state_to_arrs(s0)
+    field = (s0.field.real.contiguous(), s0.field.imag.contiguous())
+    del s0
+    out = cuda_pic.mega(fs.dc, fs.params, *field, qn, arrs, LARGE_STEPS)
+    torch.cuda.synchronize()
+    k3 = event_ms(lambda: cuda_pic.mega(fs.dc, fs.params, *field, qn, arrs,
+                                        LARGE_STEPS), torch, 5)
+    emit(what="k3_large", npoints=n, steps=LARGE_STEPS, markers=m,
+         **summary(k3), eta_digest=digest(out[0]),
+         state_digest=digest(*out[1:]), shape=cuda_pic.LAST_MEGA_GRID, **tag)
+    del out
+    no_dep = getattr(cuda_pic, "PART_NO_DEPOSIT", None)
+    if no_dep is not None:
+        t = event_ms(lambda: cuda_pic._launch_mega(
+            fs.dc, fs.params, *field, qn, arrs, LARGE_STEPS,
+            parts=3 | no_dep), torch, 3)
+        emit(what="k3_large_no_deposit", npoints=n, steps=LARGE_STEPS,
+             **summary(t), deposit_share=1.0 - statistics.median(t)
+             / statistics.median(k3), **tag)
+    if n == K2_LARGE_NF:
+        # stage 1 after two plain stages, as at the canonical size
+        for s in (0, 1):
+            o = cuda_pic.stage_ref(s, False, fs.dc, fs.params, *field, qn,
+                                   arrs)
+            arrs = dict(arrs, eta=o[2], w_re=o[3], w_im=o[4])
+            field = o[5:]
+            del o
+        got = cuda_pic._launch_stage(1, False, fs.dc, fs.params, *field,
+                                     arrs, None)
+        torch.cuda.synchronize()
+        k2s = event_ms(lambda: cuda_pic._launch_stage(
+            1, False, fs.dc, fs.params, *field, arrs, None), torch, 10)
+        k2f = event_ms(lambda: cuda_pic._launch_field(got[-1], qn), torch,
+                       10)
+        emit(what="k2_stage_large", npoints=n, stage=1, markers=m,
+             **summary(k2s), field_ms_median=statistics.median(k2f),
+             eta_digest=digest(got[2]), partials=list(got[-1].shape), **tag)
+        del got
+    del arrs, field
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", action="append", type=pathlib.Path)
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--large", action="store_true")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     roots = [r.resolve() for r in args.root or [HERE.parents[2]]]
     if args.one:
-        return measure(roots[0], args.sweep)
+        return measure(roots[0], args.sweep, args.large)
     for root in roots:
         cmd = [sys.executable, str(HERE), "--one", "--root", str(root)]
+        if args.large:
+            cmd.append("--large")
         if args.sweep and root == HERE.parents[2]:
             cmd.append("--sweep")
         proc = subprocess.run(cmd)

@@ -44,9 +44,9 @@ K3_STAGES = """
   __global__ void __launch_bounds__(kThreads)                              \\
   name(Params P, Markers mk, MegaState st, int m, int nf) {                \\
     extern __shared__ float smem[];                                        \\
-    mega_markers<STAGE, FIRST, true>(                                      \\
+    mega_markers<STAGE, FIRST, true, kFormShared>(                         \\
         P, planes<kFormShared>(smem, nullptr, nullptr, nullptr, nf), mk,   \\
-        st, m, nf);                                                        \\
+        st, m, nf, true);                                                  \\
   }
 K3_STAGE(k3_stage0_first, 0, true)
 K3_STAGE(k3_stage0, 0, false)

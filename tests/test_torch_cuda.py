@@ -2,7 +2,8 @@
 K1 and the float32 solves through it (Newton, the shift-invert Arnoldi
 with its polish, and K1 at the window shape of the mesh-sharded banded
 assembly); K2, K3 and K4 (the fused PIC marker pass, in each of its
-forms) and the fused PIC run; K5 (the BSR SpMV) and the banded solve through
+forms, the cluster form's clusters of 2, 4 and 8 among them) and the fused
+PIC run; K5 (the BSR SpMV) and the banded solve through
 it; the driver's three kernel routes from an input dict, each against
 the same driver call on CPU tensors; a one-rank NCCL mesh solve against
 the single-device solve; and the sorted-window PIC path (plain torch, no
@@ -296,22 +297,33 @@ def test_pic_mega_matches_plain_at_other_sizes(card, n, dc):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,form", [(16384, cuda_pic.FORM_HIST),
-                                    (32768, cuda_pic.FORM_GLOBAL)])
-def test_pic_large_grid_matches_plain(card, n, form):
-    """Past the small-grid form: npoints 16,384 (the histogram in shared
-    memory, the field from device memory) and 32,768 (a scratch row a
-    block), 64 markers per cell, dt 0.25 scaled with the cell width (at dt
-    0.25 the scheme's grid-scale mode grows past float32 at these grids,
-    the sooner the fewer markers a cell, in emme_tpu too).  K3 over 4 steps
-    against mega_ref (stats
-    1e-5, weights and field 2e-5 of scale, eta within 1 ulp), K2's stages
-    of one step against stage_ref (2e-5), eta bit-equal between two K3
-    runs and between K3 and K2 through the run entry point."""
-    p, s0 = _pic_case(card, n, 64)
+@pytest.mark.parametrize("n,form,mpc", [
+    (16384, cuda_pic.FORM_CLUSTER, 64), (32768, cuda_pic.FORM_CLUSTER, 64),
+    (65536, cuda_pic.FORM_CLUSTER, 64), (131072, cuda_pic.FORM_CLUSTER, 16),
+    (224256, cuda_pic.FORM_CLUSTER, 16), (229376, cuda_pic.FORM_GLOBAL, 16)])
+def test_pic_large_grid_matches_plain(card, n, form, mpc):
+    """Past the small-grid form: npoints 16,384 (the histogram in one
+    block's shared memory, the field from device memory), 32,768, 65,536,
+    131,072 and 224,256 (the histogram in a cluster's distributed shared
+    memory, clusters of 2, 4 and 8; at 224,256, the cap, every rank's slice
+    and the reduce's table fill a block's 232,448 bytes) and 229,376 (past
+    the cluster form's cap: a scratch row a block), 64 or 16 markers per
+    cell, dt 0.25 scaled with the cell width
+    (at dt 0.25 the scheme's grid-scale mode grows past float32 at these
+    grids, the sooner the fewer markers a cell, in emme_tpu too).  K3 over
+    4 steps against mega_ref (stats 1e-5, weights and field 2e-5 of scale,
+    eta within 1 ulp), K2's stages of one step against stage_ref (2e-5),
+    eta bit-equal between two K3 runs and between K3 and K2 through the
+    run entry point."""
+    p, s0 = _pic_case(card, n, mpc)
     dt = 0.25 * 1024 / n
     shape = cuda_pic.mega_grid(card, n, True)
-    assert shape["form"] == form and shape["grid"] == shape["sms"]
+    cs = cuda_pic.cluster_size(n)
+    assert shape["form"] == form and shape["cluster"] == cs
+    assert shape["clusters"] >= 1 and shape["partials"] == shape["clusters"]
+    assert shape["grid"] == shape["clusters"] * cs <= shape["sms"]
+    if cs == 1:
+        assert shape["grid"] == shape["sms"]
     params = cuda_pic.FusedStep.params_vec(p, dt)
     qn = pic.quasi_neutrality_coef(p, dtype=torch.float32)
     arrs = cuda_pic.state_to_arrs(s0)
@@ -336,8 +348,36 @@ def test_pic_large_grid_matches_plain(card, n, form):
         vel_prev = k2[:2] if s == 1 else None
         arrs = dict(arrs, eta=k2[2], w_re=k2[3], w_im=k2[4])
         field = k2[5:]
-    _, s_k2, _ = cuda_pic.run(p, 64, 4, dt, state=s0, launch="stages")
+    _, s_k2, _ = cuda_pic.run(p, mpc, 4, dt, state=s0, launch="stages")
     assert torch.equal(s_k2.eta, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32768, 65536, 131072, 224256])
+def test_grid_sync_probe_at_cluster_shape(card, n):
+    """K4 at K3's launch shape in the cluster form (clusters of 2, 4, 8:
+    the co-resident clusters times their size; 224,256, the cap, gives K3
+    a full block of shared memory a rank): the runtime takes the
+    cooperative and the cluster attributes together, and after grid.sync()
+    every block sees every other block's writes; the self-check passes.
+    A grid that is not a whole number of clusters is refused before any
+    launch."""
+    shape = cuda_pic.mega_grid(card, n, True)
+    cs = cuda_pic.cluster_size(n)
+    assert shape["cooperative"] and shape["cluster"] == cs > 1
+    assert shape["grid"] == shape["clusters"] * cs >= cs
+    x = torch.rand((shape["grid"], cuda_pic.THREADS), device=card)
+    before = cuda_pic.LAUNCHES["grid_sync_probe"]
+    for rounds in (1, cuda_pic.PROBE_ROUNDS, 5):
+        got = cuda_pic.grid_sync_probe(x, rounds, cluster=cs)
+        assert torch.equal(got, cuda_pic.grid_sync_probe_ref(x, rounds))
+    assert cuda_pic.LAUNCHES["grid_sync_probe"] == before + 3
+    with pytest.raises(ValueError, match="clusters"):
+        cuda_pic.grid_sync_probe(x[:cs + 1], cluster=cs)
+    cuda_pic._SELFCHECK.clear()
+    ok, info = cuda_pic.grid_sync_selfcheck(card, n, True)
+    assert ok, info
+    assert info["cluster"] == cs and info["grid"] == shape["grid"]
 
 
 @pytest.mark.cuda

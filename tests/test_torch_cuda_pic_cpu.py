@@ -137,18 +137,66 @@ def test_guards(tokamak_cfg):
         cuda_pic.run(pt, 8, 2, 0.25, precision="bf16")
     _, big = _params(tokamak_cfg, n=16384)
     fs = cuda_pic.FusedStep(big, 8 * 16384, 0.25)
-    assert fs.nf == 16384 and cuda_pic.form(fs.nf) == cuda_pic.FORM_HIST
+    assert fs.nf == 16384 and cuda_pic.form(fs.nf) == cuda_pic.FORM_CLUSTER
+    assert cuda_pic.cluster_size(fs.nf) == 1
 
 
 @pytest.mark.parametrize("nf,want", [
     (128, cuda_pic.FORM_SHARED), (12288, cuda_pic.FORM_SHARED),
-    (12416, cuda_pic.FORM_HIST), (16384, cuda_pic.FORM_HIST),
-    (27648, cuda_pic.FORM_HIST), (27776, cuda_pic.FORM_GLOBAL),
-    (32768, cuda_pic.FORM_GLOBAL)])
+    (12416, cuda_pic.FORM_CLUSTER), (16384, cuda_pic.FORM_CLUSTER),
+    (27648, cuda_pic.FORM_CLUSTER), (27776, cuda_pic.FORM_CLUSTER),
+    (32768, cuda_pic.FORM_CLUSTER), (55296, cuda_pic.FORM_CLUSTER),
+    (224256, cuda_pic.FORM_CLUSTER), (224384, cuda_pic.FORM_GLOBAL)])
 def test_form_is_chosen_by_npoints(nf, want):
     """The kernels' form (where the field and the histogram live) is a
-    function of npoints alone, with the thresholds of csrc/pic.cu."""
+    function of npoints alone, with the thresholds of csrc/pic.cu: the
+    cluster form from the first multiple of 128 past the small-grid form up
+    to its cap, 224,256 points (8 ranks of 28,032 columns), the scratch row
+    above it."""
     assert cuda_pic.form(nf) == want
+    assert cuda_pic.CLUSTER_NF == 224256
+
+
+def _cluster_rule(nf):
+    """csrc/pic.cu's cluster size, from its byte count: the smallest of
+    1, 2, 4, 8 blocks whose slice, two float planes of nf / cs columns, fits
+    a block's shared memory beside the field reduce's static table (a double
+    for each warp and column of a tile); None where the small-grid form
+    takes nf (up to kSharedNf) or no cluster fits."""
+    src = (CSRC / "pic.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             src).group(1))
+
+    if nf <= const("kSharedNf"):
+        return None
+    per_block = const("kSmemPerBlock")
+    reduce_bytes = const("kThreads") // 32 * const("kTile") * 8
+    for cs in (1, 2, 4, 8):
+        if 2 * (nf // cs) * 4 + reduce_bytes <= per_block:
+            return cs
+    return None
+
+
+@pytest.mark.parametrize("nf", [128, 12288, 16384, 27648, 27776, 32768,
+                                55296, 56064, 56192, 65536, 112128, 112256,
+                                131072, 224256, 224384, 12416, 28032, 28160])
+def test_cluster_size_and_slice_follow_the_byte_count(nf):
+    """cuda_pic.cluster_size against a mirror of csrc/pic.cu's rule
+    computed from the kernel's byte count: the smallest cluster of 1, 2, 4
+    or 8 whose slice fits a block; a slice of nf / cs whole columns, each
+    rank the same width, no wider than CLUSTER_SLICE_NF.  The small-grid
+    form below and the scratch-row form past the cap launch no cluster."""
+    cs = _cluster_rule(nf)
+    if cs is None:
+        assert cuda_pic.form(nf) != cuda_pic.FORM_CLUSTER
+        assert cuda_pic.cluster_size(nf) == 1
+        return
+    assert cuda_pic.form(nf) == cuda_pic.FORM_CLUSTER
+    assert cuda_pic.cluster_size(nf) == cs
+    assert nf % cs == 0 and nf // cs <= cuda_pic.CLUSTER_SLICE_NF
+    assert cs == 1 or nf // (cs // 2) > cuda_pic.CLUSTER_SLICE_NF
 
 
 def test_large_grid_run_matches_jax_xla(tokamak_cfg, monkeypatch):
@@ -168,18 +216,40 @@ def test_large_grid_run_matches_jax_xla(tokamak_cfg, monkeypatch):
     markers, cast) than 1.5 times JAX's float32 run is: the port as
     accurate as the JAX package at this size.  eta never sees the field
     and is held to its bar alone."""
-    pj, pt = _params(tokamak_cfg, n=16384)
-    pj64 = emme_tpu.from_config(dict(tokamak_cfg, npoints=16384),
+    _large_grid_vs_jax(tokamak_cfg, monkeypatch, 16384, 8)
+
+
+def test_cluster_grid_run_matches_jax_xla(tokamak_cfg, monkeypatch):
+    """npoints 65,536, the cluster form's size on the card (clusters of
+    4), 4 markers per cell, 2 steps: the fused run's plain version against
+    JAX pic.run from the same markers, held as at 16,384 (the Pallas bars,
+    or no further from JAX's float64 run than 1.5 times JAX's own float32
+    run; eta to its bar).  From this key the port and JAX's float32 run
+    part by 2.1e-3 (weights), 2.6e-3 (field) and 7.8e-3 (dc_pb) of scale;
+    JAX's float32 run sits 8.5e-3 and 6.1e-3 from its float64 run, the
+    port 8.5e-3 and 7.1e-3.
+    """
+    assert cuda_pic.cluster_size(65536) == 4
+    _large_grid_vs_jax(tokamak_cfg, monkeypatch, 65536, 4)
+
+
+def _large_grid_vs_jax(tokamak_cfg, monkeypatch, n, mpc):
+    """The fused run (launch 'auto', mega_ref on the CPU) against JAX
+    pic.run at n grid points, mpc markers per cell, 2 steps, dt 0.25,
+    float32, drift-center, with JAX's float64 run from the same markers as
+    the judge where the float32 runs part past a bar."""
+    pj, pt = _params(tokamak_cfg, n=n)
+    pj64 = emme_tpu.from_config(dict(tokamak_cfg, npoints=n),
                                 dtype=jnp.float64)
     key = jax.random.PRNGKey(3)
-    stats_j, s_j, _ = jpic.run(pj, 8, 2, 0.25, key=key)
-    s32 = jpic.init_state(pj, 8, key, dtype=jnp.float32)
+    stats_j, s_j, _ = jpic.run(pj, mpc, 2, 0.25, key=key)
+    s32 = jpic.init_state(pj, mpc, key, dtype=jnp.float32)
     s64 = type(s32)(**{k: jnp.asarray(v, jnp.complex128 if jnp.iscomplexobj(v)
                                       else jnp.float64)
                        for k, v in vars(s32).items()})
     monkeypatch.setattr(jpic, "init_state", lambda *a, **k: s64)
-    stats_64, s_64, _ = jpic.run(pj64, 8, 2, 0.25, key=key)
-    stats, s, _ = cuda_pic.run(pt, 8, 2, 0.25, state=_start(pj, 8, key))
+    stats_64, s_64, _ = jpic.run(pj64, mpc, 2, 0.25, key=key)
+    stats, s, _ = cuda_pic.run(pt, mpc, 2, 0.25, state=_start(pj, mpc, key))
     assert cuda_pic.LAST_LAUNCH == "single" and stats.shape == (2, 3)
 
     def rel(a, b):
@@ -511,12 +581,22 @@ def test_kernel_source_matches_wrapper():
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
     assert const("kSharedNf") == cuda_pic.SHARED_NF
-    assert const("kHistNf") == cuda_pic.HIST_NF
-    assert (const("kFormShared"), const("kFormHist"), const("kFormGlobal")) \
-        == (cuda_pic.FORM_SHARED, cuda_pic.FORM_HIST, cuda_pic.FORM_GLOBAL)
-    # the largest histogram-in-shared-memory form fits a block beside the
-    # reduce's static 8 KB (232,448 bytes a block on an H100)
-    assert 2 * cuda_pic.HIST_NF * 4 + 8192 <= const("kSmemPerBlock")
+    assert (const("kFormShared"), const("kFormCluster"),
+            const("kFormGlobal")) \
+        == (cuda_pic.FORM_SHARED, cuda_pic.FORM_CLUSTER, cuda_pic.FORM_GLOBAL)
+    # the cluster form: a full slice fills a block exactly beside the
+    # reduce's static 8 KB (232,448 bytes a block on an H100), 8 ranks at
+    # most, one block (a plain launch) up to a full slice
+    assert const("kClusterSliceNf") == cuda_pic.CLUSTER_SLICE_NF
+    assert const("kClusterMax") == cuda_pic.CLUSTER_MAX
+    assert const("kClusterNf") == cuda_pic.CLUSTER_NF
+    assert 2 * cuda_pic.CLUSTER_SLICE_NF * 4 + 8192 == const("kSmemPerBlock")
+    assert const("kPartNoDeposit") == cuda_pic.PART_NO_DEPOSIT
+    # the cooperative launch carries the cluster attribute; peers' adds go
+    # through distributed shared memory, fenced by cluster barriers
+    assert "cudaLaunchAttributeClusterDimension" in src
+    assert "cudaOccupancyMaxActiveClusters" in src
+    assert "map_shared_rank" in src and "cg::this_cluster().sync()" in src
     assert const("kThreads") == cuda_pic.THREADS
     assert const("kParams") == cuda_pic.N_PARAMS
     for name in ("L", "CW", "VT", "BT", "SHAT", "ODB", "QR", "I2CW", "SUBDT",
