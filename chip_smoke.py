@@ -10,7 +10,9 @@ check exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off.
 2. build:  kernel K1 compiled with nvcc from emme_tpu_torch/csrc/ into
-   emme_tpu_torch/_build/.
+   emme_tpu_torch/_build/; build_adaptive: kernel N1 (csrc/adaptive.cu,
+   --fmad=false), started with the other three sources, one nvcc each;
+   ptxas's registers and spills.
 3. kernel vs plain: K1 against its plain PyTorch version on the card, on
    every |i - j| tier of the n=1024 tokamak pairs (ms=(0,), bar 5e-7
    max(scale, 1)) and on the n=128 stellarator pairs (ms=(0,1,2), bar
@@ -211,13 +213,31 @@ check exits non-zero:
    1e-5 of golden tok1024; the canonical PIC case (marker-sharded, the
    plain step) within 5 % / 10 % of golden pic_tok1024; each with its
    seconds beside its single-device phase's (14, 4 and 10's plain run).
+27. native_vs_plain (run after phase 5d): kernel N1 (csrc/adaptive.cu, the
+   float64 adaptive Gauss-Kronrod integrals of the reference-exact engine)
+   against its plain version (ops/adaptive.integrate_ref) on the card, on
+   every integral of one assembly, as eigen_native.solve launches it: the
+   523,776 tok1024 pairs (m = 0, G7K15, depth limit 100) and the 523,776
+   stel1024 pairs with three moments (1,571,328 integrals, G15K31, depth
+   limit 20); no integral split differently (panel counts) or with other
+   Miller steps, and max abs within 1e-12 of the largest value; max abs,
+   median, flips, the kernel's ms (median of 3) and the plain version's,
+   the bound, and native.assemble's ms.
+28. native_slice: eigen_native.solve(p, w0, tol=1e-6) in float64 on the
+   card through the port's modules, counted (N1 launches = 2 + steps):
+   stel1024 from -1.656+2.490j within 1e-8 of
+   tests/goldens/stellarator_sequence.json's stel1024 in 3 steps, tok1024
+   from -0.8+0.25j within 1e-8 of golden tok1024 in 5 steps; the seconds of
+   each, and phase 5b's certified float32 omega's distance to this one.
 
 The kernels JSON gives every kernel its bound: the larger of the bytes it
 must move (each input read once, each output written once; for K3, whose
 markers' state outgrows the 50 MB L2 past the canonical size, each
 stage's marker loads and stores less the share the L2 could hold) over
 3.35 TB/s and its float32 operations over 67 TFLOP/s (NVIDIA's H100 SXM
-data sheet), from this run's shapes and data.  The operations of a node
+data sheet), from this run's shapes and data; N1's operations are float64
+at 34 TFLOP/s, counted from its source (ops/cuda_adaptive.flop_count: the
+Miller steps and panels this run's integrals took).  The operations of a node
 of K1 and of a marker-stage of K2 / K3 are counted from the kernels'
 machine code (emme_tpu_torch/tools/sass_count.py, an FMA as two) on the
 path a node or marker executes: one side of each Bessel function's split,
@@ -360,6 +380,24 @@ def large_dt(n):
     return PIC_DT * N_TOK / n
 LARGE_TIME_LIMIT_S = 300
 
+
+# native_vs_plain / native_slice: the reference-exact float64 engine (N1).
+# N1 against its plain version on every integral of an n=1024 assembly: on
+# the card both call the same libdevice functions and N1 is built without
+# contraction, so no integral may split differently and the values agree to
+# rounding, within NATIVE_BAR of the largest; the solves' bar against the
+# engine's goldens: golden tok1024 (5 steps) and
+# tests/goldens/stellarator_sequence.json's stel1024 (3 steps).
+NATIVE_BAR = 1e-12
+NATIVE_SOLVE_BAR = 1e-8
+NATIVE_STEL1024 = complex(-1.656555940938338, 2.490320582544963)
+NATIVE_STEPS = {"stellarator": 3, "tokamak": 5}
+NATIVE_TIME_LIMIT_S = 300
+# NVIDIA H100 SXM data sheet: float64 outside the tensor cores
+PEAK_F64_FLOP_PER_S = 34e12
+# bytes an integral of N1 must move: its pair row (4 float64) and moment
+# read, its value (2 float64), panel count and Miller steps written
+N1_BYTES_PER_INTEGRAL = 32 + 4 + 16 + 4 + 8
 
 MESH_ROWS = 4            # the window layout of mesh_window_assembly
 MESH_DEADLINE_S = 240    # mesh_slice's spawn: every rank killed past it
@@ -553,12 +591,12 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, flop_rate=PEAK_F32_FLOP_PER_S):
     """The least time in ms the card could take: bytes over the memory
-    rate or float32 operations over the float32 rate, whichever is
-    larger."""
+    rate or operations over their type's rate (float32 unless
+    ``flop_rate`` says otherwise), whichever is larger."""
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    by_ops = flops / flop_rate * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bound_bytes": n_bytes, "bound_flop": flops}
@@ -1716,7 +1754,7 @@ def dense_phases(torch, card, p, state):
     rel = abs(om - GOLDEN_TOK1024) / abs(GOLDEN_TOK1024)
     assemblies = 2 + did["queued_steps"] + did["polish_assemblies"]
     cert_launches = sum(by_ms.values())
-    cert_s = secs
+    cert_s, cert_om = secs, om
     emit("dense_certify", case=f"tok{N_TOK} float32 dense host64 tol 1e-6",
          omega=[om.real, om.imag],
          golden=[GOLDEN_TOK1024.real, GOLDEN_TOK1024.imag], rel_err=rel,
@@ -1852,7 +1890,7 @@ def dense_phases(torch, card, p, state):
          null_vector={"correlation": corr, "residual": res,
                       "inverse_ms": inv_ms, "svd_ms": svd_ms}, card=card)
     return {"launches": cert_launches + stel_launches,
-            "certify_seconds": cert_s,
+            "certify_seconds": cert_s, "certify_omega": cert_om,
             "certify_launches": cert_launches, "stel_launches": stel_launches,
             "max_abs_err": max(r["max_abs_err"] for r in stel_rows),
             "stel_rows": stel_rows}
@@ -2413,6 +2451,141 @@ def mesh_window_phase(torch, card):
             "max_abs_err": max(r["k1_vs_plain_max_abs_err"] for r in rows)}
 
 
+def native_phases(torch, card, certified_omega):
+    """Phases 27-28: N1 against its plain version on the card, and the
+    reference-exact solves through the port's modules; returns N1's entry of
+    the kernels JSON."""
+    from emme_tpu_torch import from_config, native
+    from emme_tpu_torch.ops import adaptive, cuda_adaptive
+    from emme_tpu_torch.ops.singularity import singularity_coeff_matrix
+    from emme_tpu_torch.solvers import eigen_native
+
+    dog = watchdog(NATIVE_TIME_LIMIT_S, "native phases")
+    cmp = {}
+    for name, om in (("tokamak", GUESS), ("stellarator", STEL_GUESS)):
+        p = from_config(load_cfg(name, N_TOK))
+        check(p.device.type == "cuda" and p.dtype == torch.float64,
+              f"{name}: float64 on the card by default")
+        # every integral of one assembly, as eigen_native.solve launches it
+        iu, ju = torch.triu_indices(N_TOK, N_TOK, 1, device=p.device)
+        rows, m, _, ph = native.pair_integrals(p, iu, ju)
+        sc = adaptive.scalars(ph, om)
+        k_ms, (got, panels, miller) = timed(
+            lambda: cuda_adaptive.integrate(rows, m, sc), torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, rpanels, rmiller = adaptive.integrate_ref(rows, m, sc)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(got.is_cuda and bool(torch.isfinite(got).all()),
+              f"{name}: N1 finite on the card")
+        diff = torch.linalg.vector_norm(got - ref, dim=1)
+        rel = diff / torch.linalg.vector_norm(ref, dim=1)
+        flips = int((panels != rpanels).sum())
+        miller_differ = int((miller != rmiller).sum())
+        scale = float(ref.abs().max())
+        max_abs = float(diff.max())
+        bit_equal = float((got == ref).all(dim=1).double().mean())
+        check(flips == 0 and miller_differ == 0,
+              f"N1 vs plain, {name}: {flips} of {m.numel()} integrals split "
+              f"differently, {miller_differ} differ in Miller steps")
+        check(max_abs < NATIVE_BAR * scale,
+              f"N1 vs plain, {name}: {max_abs:.3e} < {NATIVE_BAR} x "
+              f"{scale:.3e}")
+        flop = cuda_adaptive.flop_count(panels, miller, ph.gk_order)
+        bnd = bound(N1_BYTES_PER_INTEGRAL * m.numel(), flop,
+                    PEAK_F64_FLOP_PER_S)
+        coeff = singularity_coeff_matrix(N_TOK)
+        asm_ms, M = timed(lambda: native.assemble(p, coeff, om), torch)
+        check(M.is_cuda and M.dtype == torch.complex128
+              and bool(torch.isfinite(M).all()), f"{name}: assembly finite")
+        del M, rows, m, got, ref
+        cmp[name] = {
+            "integrals": int(panels.numel()), "max_abs_err": max_abs,
+            "scale": scale, "max_rel": float(rel.max()),
+            "median_rel": float(rel.median()),
+            "median_abs": float(diff.median()),
+            "bit_equal_share": bit_equal,
+            "flips": flips, "miller_steps_differ": miller_differ,
+            "panels": int(panels.sum()),
+            "panels_per_integral": float(panels.double().mean()),
+            "miller_steps": int(miller.sum()),
+            "kernel_ms": k_ms, "plain_ms": plain_ms, **bnd,
+            "share_of_bound": bnd["bound_ms"] / k_ms,
+            "native_assemble_ms": asm_ms}
+        emit("native_vs_plain", case=f"{'tok' if name == 'tokamak' else 'stel'}"
+             f"{N_TOK}", order=ph.gk_order, max_subdivide=ph.max_subdivide,
+             moments=[0, 1, 2] if p.electromagnetic else [0], **cmp[name],
+             card=card)
+
+    # 28. native_slice: the reference-exact solves, counted
+    slices = {}
+    launches = 0
+    for name, om0, golden in (("stellarator", STEL_GUESS, NATIVE_STEL1024),
+                              ("tokamak", GUESS, GOLDEN_TOK1024)):
+        p = from_config(load_cfg(name, N_TOK))
+        cuda_adaptive.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        om, vec, n_steps, M = eigen_native.solve(p, om0, tol=1e-6)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_launch = cuda_adaptive.LAUNCHES
+        launches += n_launch
+        rel = abs(om - golden) / abs(golden)
+        residual = float(torch.linalg.vector_norm(M @ vec)
+                         / torch.linalg.matrix_norm(M))
+        slices[name] = {"omega": [om.real, om.imag], "rel_err": rel,
+                        "steps": n_steps, "seconds": secs,
+                        "launches": n_launch}
+        extra = {}
+        if name == "tokamak":
+            extra["certified_f32_rel_diff"] = (
+                abs(certified_omega - om) / abs(om))
+        emit("native_slice", case=f"{'tok' if name == 'tokamak' else 'stel'}"
+             f"{N_TOK} eigen_native.solve float64", omega=[om.real, om.imag],
+             golden=[golden.real, golden.imag], rel_err=rel, steps=n_steps,
+             seconds=secs, launches=n_launch, residual=residual,
+             dim=M.shape[0], **extra, card=card)
+        check(M.is_cuda and vec.is_cuda and M.dtype == torch.complex128,
+              f"{name}: M and vector complex128 on the card")
+        check(bool(torch.isfinite(M).all()) and bool(torch.isfinite(vec).all()),
+              f"{name}: finite M and vector")
+        check(n_launch == 2 + n_steps,
+              f"{name}: N1 launches {n_launch} == 2 + {n_steps} steps")
+        check(n_steps == NATIVE_STEPS[name],
+              f"{name}: {n_steps} steps == {NATIVE_STEPS[name]}")
+        check(rel < NATIVE_SOLVE_BAR,
+              f"{name}: omega rel err {rel:.3e} < {NATIVE_SOLVE_BAR}")
+        del M, vec
+    dog.cancel()
+    tok, stel = cmp["tokamak"], cmp["stellarator"]
+    return {
+        "name": "adaptive_integrals",
+        "route": "cuda",
+        "source": "emme_tpu_torch/csrc/adaptive.cu",
+        "replaces": "native/emme_native.cpp:319",
+        "launches": launches,
+        "launches_from": f"eigen_native.solve stel{N_TOK} "
+                         f"({slices['stellarator']['launches']}) + tok{N_TOK} "
+                         f"({slices['tokamak']['launches']})",
+        "max_abs_err": max(tok["max_abs_err"], stel["max_abs_err"]),
+        "ms": tok["kernel_ms"], "plain_ms": tok["plain_ms"],
+        "bound_ms": tok["bound_ms"], "bound_by": tok["bound_by"],
+        "library_ms": None,
+        "ms_at": f"one tok{N_TOK} assembly: {tok['integrals']} integrals, "
+                 f"m = 0, G7K15",
+        "flips": tok["flips"] + stel["flips"],
+        "stel_ms": stel["kernel_ms"], "stel_plain_ms": stel["plain_ms"],
+        "stel_bound_ms": stel["bound_ms"],
+        "stel_ms_at": f"one stel{N_TOK} assembly: {stel['integrals']} "
+                      f"integrals, m = 0, 1, 2, G15K31",
+        "native_assemble_ms": {"tok": tok["native_assemble_ms"],
+                               "stel": stel["native_assemble_ms"]},
+        "solve_seconds": {k: v["seconds"] for k, v in slices.items()},
+    }
+
+
 def mesh_slice_rank(workdir, single, cli_device="auto"):
     """One rank of phase 26 (spawned by parallel.mesh.launch, NCCL, one
     card): the collectives, then the three mesh paths through the command
@@ -2562,11 +2735,12 @@ def main():
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
     # 2. build: every kernel source compiles at once, one nvcc each
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = {name: pool.submit(_build.build, name)
-                  for name in ("kappa", "pic", "spmv")}
+                  for name in ("kappa", "pic", "spmv", "adaptive")}
         builds = {name: f.result() for name, f in builds.items()}
     emit_build("build", builds["kappa"])
+    emit_build("build_adaptive", builds["adaptive"])
 
     dev = torch.device("cuda")
     f32 = torch.float32
@@ -2654,6 +2828,7 @@ def main():
 
     k1_dense = dense_phases(torch, card, p, state)
     del state, M
+    n1 = native_phases(torch, card, k1_dense["certify_omega"])
     pic_kernels = pic_phases(torch, builds["pic"], card)
     k5, k1_banded = banded_phases(torch, builds["spmv"], card)
     drv_launches, drv_from = driver_phases(torch, card, om,
@@ -2697,7 +2872,7 @@ def main():
         "stel_plain_ms": sum(r["plain_ms"] for r in k1_dense["stel_rows"]),
         "stel_bound_ms": k1_stel_bound["bound_ms"],
         "stel_ms_at": f"one stel{N_TOK} assembly, all tiers, three moments",
-    }] + pic_kernels + [k5]}
+    }] + pic_kernels + [k5, n1]}
     # the large-grid runs of K2, K3 and K4 (phase 23)
     for k in kernels_line["kernels"]:
         extra = {"pic_stage": k2_large, "pic_mega": k3_large}.get(k["name"],
@@ -2708,9 +2883,13 @@ def main():
             k["launches_from"] += (f" + npoints "
                                    f"{', '.join(map(str, LARGE_NF))} "
                                    f"({large_launches[k['name']]})")
-    # every kernel's launches on the driver's paths, from input files
+    # every kernel's launches on the driver's paths, from input files; N1
+    # has none: no input file reaches the reference-exact engine in either
+    # package (emme_tpu/driver.py does not call emme_tpu.native)
     field_launches = drv_launches.pop("pic_field")
     for k in kernels_line["kernels"]:
+        if k["name"] == n1["name"]:
+            continue
         n = drv_launches[k["name"]]
         check(n > 0, f"{k['name']} was launched from an input file")
         k["launches"] += n

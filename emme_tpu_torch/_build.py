@@ -23,6 +23,15 @@ BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags one source adds to NVCC_FLAGS: the float64 adaptive engine builds
+# without FMA contraction, so that its rounding follows the plain version's
+# operation for operation (an accept/split decision can turn on the last bit)
+EXTRA_FLAGS = {"adaptive": ("--fmad=false",)}
+
+
+def flags(name: str) -> tuple:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 # name -> (loaded library, build record); one build per process
 _LOADED: dict = {}
@@ -42,7 +51,7 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = SRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -55,7 +64,8 @@ def build(name: str) -> dict:
         return {"path": str(out), "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+    cmd = [nvcc_path(), *flags(name), "-o", str(tmp),
+           str(SRC_DIR / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

@@ -1,0 +1,58 @@
+"""Reference-exact eigensolve on the float64 adaptive assembly.
+
+Counterpart of ``emme_tpu/solvers/eigen_native.py``: the Newton secant
+iteration (TraceSecant, solver.h:113-160; QRSecant, solver.h:210-383) on
+``native.assemble``, whose integrals run through kernel N1 on the card and
+its plain version on the CPU, with the linear algebra of ``ops/linalg`` in
+complex128 on the same device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import native
+from ..ops import linalg
+from ..ops.singularity import singularity_coeff_matrix
+
+METHODS = ("TraceSecant", "QRSecant")
+
+
+def solve(p, omega_init: complex, tol: float = 1e-6, callback=None,
+          n_threads=None, method: str = "TraceSecant"):
+    """Secant-Newton on det M(omega) = 0 from ``omega_init`` (the start
+    0.99 omega_init, then omega_init).  Stops when |d_omega| < tol |omega|
+    or after ``p.iteration_step_limit + 1`` steps; ``callback(j, omega,
+    d_omega)`` after each step.  Returns (omega, null vector of M in the
+    engine's conjugated convention, steps, M), the last two complex128 on
+    ``p.device``.  ``n_threads`` is unused (``native``)."""
+    if method not in METHODS:
+        raise ValueError(f"method must be one of {METHODS}, got {method!r}")
+    coeff = singularity_coeff_matrix(p.npoints, dtype=torch.float64,
+                                     device=p.device)
+
+    omega = 0.99 * complex(omega_init)
+    d_omega = 0.01 * complex(omega_init)
+    M_old = native.assemble(p, coeff, omega, n_threads)
+    omega = omega + d_omega
+    M = native.assemble(p, coeff, omega, n_threads)
+    dM = (M - M_old) / d_omega
+
+    n_steps = 0
+    for j in range(p.iteration_step_limit + 1):
+        if method == "QRSecant":
+            d_omega = complex(linalg.qr_secant_delta(M, dM))
+        else:
+            d_omega = complex(-1.0 / linalg.complex_solve_trace(M, dM))
+        omega = omega + d_omega
+        M_new = native.assemble(p, coeff, omega, n_threads)
+        dM = (M_new - M) / d_omega
+        M = M_new
+        n_steps = j + 1
+        if callback is not None:
+            callback(j, omega, d_omega)
+        if abs(d_omega) < tol * abs(omega):
+            break
+
+    vec = linalg.null_space_vector(M, "svd")
+    return omega, vec, n_steps, M

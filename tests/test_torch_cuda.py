@@ -6,8 +6,10 @@ forms, the cluster form's clusters of 2, 4 and 8 among them) and the fused
 PIC run; K5 (the BSR SpMV) and the banded solve through
 it; the driver's three kernel routes from an input dict, each against
 the same driver call on CPU tensors; a one-rank NCCL mesh solve against
-the single-device solve; and the sorted-window PIC path (plain torch, no
-kernel) against the plain run.  Every test here needs a card and skips
+the single-device solve; the sorted-window PIC path (plain torch, no
+kernel) against the plain run; and N1 (the float64 adaptive assembly of the
+reference-exact engine) against its plain version, with the tok32 solve
+through it.  Every test here needs a card and skips
 without one.
 
 This file imports torch, numpy and the port only, so it also runs on a
@@ -23,13 +25,13 @@ import pytest
 import torch
 
 import emme_tpu_torch as et
-from emme_tpu_torch import convert, driver
+from emme_tpu_torch import convert, driver, native
 from emme_tpu_torch.grid import Grid
-from emme_tpu_torch.ops import (cuda_kappa, cuda_spmv, kernels, singularity,
-                                sparse)
+from emme_tpu_torch.ops import (adaptive, cuda_adaptive, cuda_kappa, cuda_spmv,
+                                kernels, singularity, sparse)
 from emme_tpu_torch.parallel import mesh as mesh_mod
-from emme_tpu_torch.solvers import (arnoldi, cuda_pic, eigen, pic,
-                                    sparse_eigen)
+from emme_tpu_torch.solvers import (arnoldi, cuda_pic, eigen, eigen_native,
+                                    pic, sparse_eigen)
 
 torch.set_num_threads(2)
 
@@ -778,3 +780,74 @@ def test_one_rank_nccl_mesh_solve_equals_single_device(card):
     corr = float(torch.vdot(v, w).abs() / (v.norm() * w.norm()))
     assert corr > 1 - 1e-5
     assert got["k1_launches"] > 0
+
+
+def _adaptive_inputs(name, n, card):
+    """Every (pair, moment) integral of the engine's n-point assembly on the
+    card: pair rows, moments, scalars."""
+    om = -0.8 + 0.25j if name == "tokamak" else -1.656 + 2.49j
+    p = et.from_config(_cfg(name, n), device=card)
+    iu, ju = torch.triu_indices(n, n, 1, device=card)
+    rows, m, _, ph = native.pair_integrals(p, iu, ju)
+    return rows, m, adaptive.scalars(ph, om)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tokamak", "stellarator"])
+def test_adaptive_kernel_matches_plain(card, name):
+    """N1 against its plain version on every integral of the 128-point
+    assembly (tokamak m = 0, G7K15; stellarator m = 0, 1, 2, G15K31): on the
+    card both call the same libdevice functions and N1 is built without
+    contraction, so no integral splits differently or takes other Miller
+    steps, and the values agree within 1e-12 of the largest; one launch."""
+    rows, m, sc = _adaptive_inputs(name, 128, card)
+    before = cuda_adaptive.LAUNCHES
+    got, panels, miller = cuda_adaptive.integrate(rows, m, sc)
+    torch.cuda.synchronize()
+    assert cuda_adaptive.LAUNCHES == before + 1
+    ref, rpanels, rmiller = adaptive.integrate_ref(rows, m, sc)
+    assert got.is_cuda and bool(torch.isfinite(got).all())
+    flips = int((panels != rpanels).sum())
+    print(f"{name}128: {flips} of {m.numel()} integrals split differently")
+    assert flips == 0 and bool((miller == rmiller).all())
+    assert bool((panels >= 1).all()) and bool((miller > 0).all())
+    d = torch.linalg.vector_norm(got - ref, dim=1)
+    assert float(d.max()) < 1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_native_solve_tok32_on_card(card):
+    """The reference-exact solve on the card: M complex128 on the card,
+    every assembly one N1 launch, within 1e-9 of golden tok32 in 6 steps,
+    and the first operator within tests/test_native.py's bars of the
+    reference's matrix_tok32_guess."""
+    goldens_dir = INPUTS.parent
+    with open(goldens_dir / "eigenvalues.json") as f:
+        gold = json.load(f)["tok32"]
+    p = et.from_config(_cfg("tokamak", 32))
+    assert p.device.type == "cuda"
+    coeff = singularity.singularity_coeff_matrix(32)
+    M0 = native.assemble(p, coeff, -0.8 + 0.25j)
+    ref = np.fromfile(goldens_dir / "matrix_tok32_guess.bin",
+                      dtype=np.complex128).reshape(32, 32)
+    d = np.abs(M0.cpu().numpy() - ref)
+    assert d.max() < 5e-9 and np.median(d) < 1e-11
+    before = cuda_adaptive.LAUNCHES
+    om, vec, steps, M = eigen_native.solve(p, -0.8 + 0.25j, tol=1e-6)
+    assert cuda_adaptive.LAUNCHES - before == 2 + steps
+    assert M.is_cuda and M.dtype == torch.complex128 and vec.is_cuda
+    ref_om = complex(*gold["omega"])
+    assert abs(om - ref_om) / abs(ref_om) < 1e-9
+    assert steps == gold["steps"]
+
+
+@pytest.mark.cuda
+def test_adaptive_kernel_refuses_a_deep_stack(card):
+    """A depth limit past the shared-memory stack raises; nothing launches
+    and nothing falls back."""
+    rows, m, sc = _adaptive_inputs("tokamak", 8, card)
+    deep = adaptive.Scalars(**{**sc.__dict__, "max_subdivide": 10000})
+    before = cuda_adaptive.LAUNCHES
+    with pytest.raises(ValueError):
+        cuda_adaptive.integrate(rows, m, deep)
+    assert cuda_adaptive.LAUNCHES == before

@@ -9,6 +9,7 @@ PKG = pathlib.Path(__file__).resolve().parent.parent / "emme_tpu_torch"
 MODULES = [
     "emme_tpu_torch", "emme_tpu_torch.params", "emme_tpu_torch.geometry",
     "emme_tpu_torch.grid", "emme_tpu_torch.convert", "emme_tpu_torch._build",
+    "emme_tpu_torch.native",
     "emme_tpu_torch.driver", "emme_tpu_torch.cli", "emme_tpu_torch.utils",
     "emme_tpu_torch.utils.timer", "emme_tpu_torch.utils.provenance",
     "emme_tpu_torch.utils.debug",
@@ -18,9 +19,11 @@ MODULES = [
     "emme_tpu_torch.ops.cuda_kappa", "emme_tpu_torch.ops.linalg",
     "emme_tpu_torch.ops.sparse", "emme_tpu_torch.ops.cuda_spmv",
     "emme_tpu_torch.ops.banded",
+    "emme_tpu_torch.ops.adaptive", "emme_tpu_torch.ops.cuda_adaptive",
     "emme_tpu_torch.solvers.eigen", "emme_tpu_torch.solvers.pic",
     "emme_tpu_torch.solvers.cuda_pic", "emme_tpu_torch.solvers.arnoldi",
     "emme_tpu_torch.solvers.sparse_eigen",
+    "emme_tpu_torch.solvers.eigen_native",
     "emme_tpu_torch.parallel", "emme_tpu_torch.parallel.mesh",
     "emme_tpu_torch.parallel.sharded", "emme_tpu_torch.parallel.spike",
     "emme_tpu_torch.tools", "emme_tpu_torch.tools.pic_bench",
@@ -78,6 +81,12 @@ ENTRY_POINTS = {
         "sharded_bordered_d_omega", "sharded_nullspace", "solve"),
     "emme_tpu_torch.solvers.sparse_eigen": ("assemble_bdia_window",
                                             "solve_shifts"),
+    "emme_tpu_torch.native": ("phys_from_params", "g_bi", "kappa_batch",
+                              "assemble", "available", "build"),
+    "emme_tpu_torch.solvers.eigen_native": ("solve",),
+    "emme_tpu_torch.ops.cuda_adaptive": ("integrate", "build", "flop_count"),
+    "emme_tpu_torch.ops.adaptive": ("integrate_ref", "bessel_i01", "g_eta",
+                                    "bi_eta", "pair_rows", "kappa_electron"),
 }
 
 

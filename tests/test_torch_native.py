@@ -1,0 +1,255 @@
+"""emme_tpu_torch's reference-exact float64 engine (``native``,
+``ops/adaptive``, ``solvers/eigen_native``) on the CPU, where it runs the
+plain version of kernel N1, against the reference's goldens and against
+``emme_tpu.native`` (the C++ engine it ports).
+
+Every live call into ``emme_tpu.native`` goes through the ``engine``
+fixture, which builds a private copy of ``native/`` in a temporary
+directory, so no test here writes ``native/libemme_native.so``.
+"""
+import json
+import shutil
+
+import numpy as np
+import pytest
+import scipy.special as sp
+import torch
+
+import emme_tpu
+import emme_tpu.native
+import emme_tpu_torch as et
+from emme_tpu_torch import native
+from emme_tpu_torch.ops import adaptive, cuda_adaptive
+from emme_tpu_torch.ops.singularity import singularity_coeff_matrix
+from emme_tpu_torch.solvers import eigen_native
+
+torch.set_num_threads(2)
+
+GEOMETRIES = ["tokamak", "stellarator", "cylinder", "cylinder_old",
+              "taloyMagneticDrift"]
+GUESS = -0.8 + 0.25j
+
+
+def _load(goldens_dir, name):
+    with open(goldens_dir / name) as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def engine(tmp_path_factory):
+    """``emme_tpu.native`` built from a private copy of ``native/``."""
+    mod = emme_tpu.native
+    src = mod._NATIVE_DIR
+    dst = tmp_path_factory.mktemp("native")
+    for name in ("emme_native.cpp", "Makefile"):
+        shutil.copy2(src / name, dst / name)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mod, "_NATIVE_DIR", dst)
+        mp.setattr(mod, "_LIB_PATH", dst / "libemme_native.so")
+        mp.setattr(mod, "_lib", None)
+        mod.load()
+        yield mod
+
+
+def _params(goldens_dir, name, **over):
+    cfg = dict(_load(goldens_dir, f"inputs/{name}.json"), **over)
+    return et.from_config(cfg, device="cpu"), emme_tpu.from_config(cfg)
+
+
+@pytest.mark.parametrize("name", GEOMETRIES)
+def test_g_bi_vs_micro_goldens(goldens_dir, engine, name):
+    """g and b_i at 1e-14 of (1 + scale) from the C++ engine, b_i and g at
+    the same bar from the reference's goldens; the cylinder's g no further
+    from its golden than the engine is (both share the bisected
+    cylinder_shat_coeff, 2.6e-9 from the reference's)."""
+    p, pj = _params(goldens_dir, name)
+    gold = _load(goldens_dir, f"micro_{name}.json")
+    eta = np.array(gold["eta_samples"])
+    g, bi = native.g_bi(p, eta)
+    assert g.dtype == torch.float64 and g.device.type == "cpu"
+    g, bi = g.numpy(), bi.numpy()
+    g_ref, bi_ref = np.array(gold["g_integration_f"]), np.array(gold["bi"])
+    g_eng, bi_eng = engine.g_bi(pj, eta)
+    gbar = 1e-14 * (1 + np.abs(g_ref).max())
+    bbar = 1e-14 * (1 + np.abs(bi_ref).max())
+    assert np.abs(g - g_eng).max() <= gbar
+    assert np.abs(bi - bi_eng).max() <= bbar
+    assert np.abs(bi - bi_ref).max() <= bbar
+    assert np.abs(g - g_ref).max() <= max(gbar,
+                                          np.abs(g_eng - g_ref).max() + gbar)
+
+
+def test_miller_bessel_vs_scipy(goldens_dir):
+    """The engine's Miller I0/I1, brought to scipy's scaling: for Re z >= 0,
+    I e^{-z} = ive e^{-i Im z}; for Re z < 0, I_n(z) = (-1)^n I_n(-z).
+    1e-12 relative on the goldens' bessel_z and a seeded sample, |z| <= 50."""
+    gz = np.array([complex(*z) for z in
+                   _load(goldens_dir, "micro_tokamak.json")["bessel_z"]])
+    rng = np.random.default_rng(12)
+    r = 50.0 * np.sqrt(rng.uniform(0, 1, 400))
+    th = rng.uniform(-np.pi, np.pi, 400)
+    z = np.concatenate([gz, r * np.exp(1j * th)])
+    zt = torch.tensor(z)
+    i0r, i0i, i1r, i1i, zsr, zsi, steps = adaptive.bessel_i01(zt.real,
+                                                              zt.imag)
+    i0 = (i0r + 1j * i0i).numpy()
+    i1 = (i1r + 1j * i1i).numpy()
+    zs = (zsr + 1j * zsi).numpy()
+    neg = z.real < 0
+    w = np.where(neg, -z, z)
+    assert np.array_equal(zs, np.where(neg, z, -z))
+    phase = np.exp(-1j * w.imag)
+    ref0 = sp.ive(0, w) * phase
+    ref1 = np.where(neg, -1.0, 1.0) * sp.ive(1, w) * phase
+    assert (np.abs(i0 - ref0) / np.abs(ref0)).max() < 1e-12
+    assert (np.abs(i1 - ref1) / np.abs(ref1)).max() < 1e-12
+    aw = np.abs(w)
+    assert np.array_equal(steps.numpy(),
+                          np.floor(aw + 9 * np.sqrt(aw)).astype(int) + 24)
+
+
+def _by_omega(cases):
+    """The reference's kappa cases by omega: ((m, eta, eta', omega),
+    kappa_i + kappa_e)."""
+    for om in sorted({tuple(c["omega"]) for c in cases}):
+        sel = [c for c in cases if tuple(c["omega"]) == om]
+        yield ((np.array([c["m"] for c in sel]),
+                np.array([c["eta"] for c in sel]),
+                np.array([c["etap"] for c in sel]), complex(*om)),
+               np.array([complex(*c["kappa_i"]) + complex(*c["kappa_e"])
+                         for c in sel]))
+
+
+def _rel(a, b):
+    return np.abs(a - b) / (np.abs(b) + 1e-30)
+
+
+@pytest.mark.parametrize("name", GEOMETRIES)
+def test_kappa_batch_vs_micro_goldens(goldens_dir, engine, name):
+    """kappa_i + kappa_e against the reference's kappa_cases: the tokamak at
+    tests/test_native.py's bars (max relative < 1e-7, median < 1e-9), the
+    other four no further than twice the C++ engine's own distance, or
+    1e-9; the median distance to the engine below 1e-13 (the same
+    algorithm: subdivision flips only where libm rounding differs)."""
+    p, pj = _params(goldens_dir, name)
+    cases = _load(goldens_dir, f"micro_{name}.json")["kappa_cases"]
+    mine, eng, gold = [], [], []
+    for args, ref in _by_omega(cases):
+        k = native.kappa_batch(p, *args, with_electron=True)
+        assert k.dtype == torch.complex128 and k.device.type == "cpu"
+        mine.append(k.numpy())
+        eng.append(engine.kappa_batch(pj, *args, with_electron=True))
+        gold.append(ref)
+    mine, eng, gold = (np.concatenate(v) for v in (mine, eng, gold))
+    rels = _rel(mine, gold)
+    if name == "tokamak":
+        assert rels.max() < 1e-7
+        assert np.median(rels) < 1e-9
+    else:
+        ref = _rel(eng, gold)
+        assert rels.max() <= max(2 * ref.max(), 1e-9)
+        assert np.median(rels) <= max(2 * np.median(ref), 1e-9)
+    assert np.median(_rel(mine, eng)) < 1e-13
+
+
+def test_assemble_tok32_vs_reference_matrix(goldens_dir):
+    """tests/test_native.py's bars: max abs < 5e-9, median < 1e-11."""
+    p, _ = _params(goldens_dir, "tokamak", npoints=32)
+    coeff = singularity_coeff_matrix(32, device="cpu")
+    M = native.assemble(p, coeff, GUESS)
+    assert M.dtype == torch.complex128 and M.shape == (32, 32)
+    ref = np.fromfile(goldens_dir / "matrix_tok32_guess.bin",
+                      dtype=np.complex128).reshape(32, 32)
+    d = np.abs(M.numpy() - ref)
+    assert d.max() < 5e-9
+    assert np.median(d) < 1e-11
+
+
+def test_assemble_stel32_vs_reference_matrix(goldens_dir):
+    """Electromagnetic 64 x 64 operator within 1e-10 of scale
+    (tests/test_native.py)."""
+    p, _ = _params(goldens_dir, "stellarator", npoints=32)
+    coeff = singularity_coeff_matrix(32, device="cpu")
+    M = native.assemble(p, coeff.numpy(), -1.656 + 2.49j)
+    ref = np.fromfile(goldens_dir / "matrix_stel32_guess.bin",
+                      dtype=np.complex128).reshape(64, 64)
+    assert M.shape == (64, 64)
+    assert np.abs(M.numpy() - ref).max() < 1e-10 * np.abs(ref).max()
+
+
+def test_em_tokamak_n16_vs_engine(goldens_dir, engine):
+    """Electromagnetic tokamak (beta_e 0.015), which no reference golden
+    covers: the 32 x 32 operator within 5e-9 of scale of the C++ engine's."""
+    p, pj = _params(goldens_dir, "tokamak", npoints=16, beta_e=0.015)
+    assert p.electromagnetic
+    coeff = singularity_coeff_matrix(16, device="cpu")
+    M = native.assemble(p, coeff, GUESS).numpy()
+    ref = engine.assemble(pj, coeff.numpy(), GUESS)
+    assert M.shape == ref.shape == (32, 32)
+    assert np.abs(M - ref).max() < 5e-9 * np.abs(ref).max()
+
+
+def test_solve_tok32_vs_golden(goldens_dir, golden_eigenvalues):
+    """Within 1e-9 of golden tok32 in its 6 steps, the null vector a unit
+    vector of M's smallest singular value."""
+    p, _ = _params(goldens_dir, "tokamak", npoints=32)
+    om, vec, steps, M = eigen_native.solve(p, GUESS, tol=1e-6)
+    ref = complex(*golden_eigenvalues["tok32"]["omega"])
+    assert abs(om - ref) / abs(ref) < 1e-9
+    assert steps == golden_eigenvalues["tok32"]["steps"]
+    assert vec.shape == (32,) and M.dtype == torch.complex128
+    assert abs(float(torch.linalg.vector_norm(vec)) - 1.0) < 1e-12
+    smin = float(torch.linalg.svdvals(M)[-1])
+    assert float(torch.linalg.vector_norm(M @ vec)) < 1e-8 + 2 * smin
+
+
+@pytest.mark.parametrize("method", ["TraceSecant", "QRSecant"])
+def test_walk_tok32_vs_reference(goldens_dir, method):
+    """The reference's per-step omega sequence at 1e-8 a step, as
+    tests/test_trajectory.py holds the C++ engine."""
+    p, _ = _params(goldens_dir, "tokamak", npoints=32)
+    omegas = []
+    eigen_native.solve(p, GUESS, tol=1e-6, method=method,
+                       callback=lambda j, om, d: omegas.append(om))
+    ref = [complex(a, b) for a, b in
+           _load(goldens_dir, "trajectories.json")[f"tok32_{method}"]["steps"]]
+    assert len(omegas) == len(ref)
+    for k, (om, rf) in enumerate(zip(omegas, ref)):
+        assert abs(om - rf) / abs(rf) < 1e-8, (k, om, rf)
+
+
+def test_breadth_first_sum_is_depth_first_order(goldens_dir, engine):
+    """Integrals that split many times (near pairs, G7K15, depth limit 100)
+    come out bit for bit as the C++ engine's where no libm rounding moves a
+    decision: the panel sum runs in the engine's depth-first order."""
+    p, pj = _params(goldens_dir, "tokamak")
+    eta = np.linspace(-2.0, 2.0, 9)
+    etap = eta + 1e-3
+    m = np.zeros(9, dtype=np.int32)
+    ph = adaptive.phys_from_params(p)
+    rows = adaptive.pair_rows(ph, torch.tensor(eta), torch.tensor(etap))
+    vals, panels, miller = cuda_adaptive.integrate(
+        rows, torch.tensor(m), adaptive.scalars(ph, GUESS))
+    assert int(panels.min()) > 1 and bool((miller > 0).all())
+    got = adaptive.ion_prefactor(ph, vals).numpy()
+    ref = engine.kappa_batch(pj, m, eta, etap, GUESS)
+    assert np.abs(got - ref).max() <= 1e-13 * np.abs(ref).max()
+
+
+def test_wrapper_checks_and_guards(goldens_dir):
+    """The wrapper refuses what the kernel does not take; the plain version
+    refuses an order the engine has no table for; available() is a bool."""
+    p, _ = _params(goldens_dir, "tokamak")
+    ph = adaptive.phys_from_params(p)
+    sc = adaptive.scalars(ph, GUESS)
+    rows = adaptive.pair_rows(ph, torch.tensor([0.5]), torch.tensor([0.1]))
+    with pytest.raises(ValueError):
+        cuda_adaptive.integrate(rows.float(), torch.zeros(1, dtype=torch.int32),
+                                sc)
+    with pytest.raises(ValueError):
+        cuda_adaptive.integrate(rows, torch.zeros(2, dtype=torch.int32), sc)
+    with pytest.raises(ValueError):
+        adaptive.gk_rule(21)
+    assert isinstance(native.available(), bool)
+    assert cuda_adaptive.flop_count(torch.tensor([1]), torch.tensor([0]),
+                                    15) == 15 * 181 + 19
