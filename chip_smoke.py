@@ -222,7 +222,11 @@ check exits non-zero:
    limit 20); no integral split differently (panel counts) or with other
    Miller steps, and max abs within 1e-12 of the largest value; max abs,
    median, flips, the kernel's ms (median of 3) and the plain version's,
-   the bound, and native.assemble's ms.
+   the bound, and native.assemble's ms; N1's launch shape (slots a warp:
+   integrals a warp holds at a time, blocks of the persistent grid,
+   registers a thread) and SHA-256 digests of its outputs (the values with
+   -0 read as +0, the panel counts, the Miller steps), as
+   emme_tpu_torch/tools/native_bench.py prints them for a parent commit.
 28. native_slice: eigen_native.solve(p, w0, tol=1e-6) in float64 on the
    card through the port's modules, counted (N1 launches = 2 + steps):
    stel1024 from -1.656+2.490j within 1e-8 of
@@ -235,9 +239,10 @@ must move (each input read once, each output written once; for K3, whose
 markers' state outgrows the 50 MB L2 past the canonical size, each
 stage's marker loads and stores less the share the L2 could hold) over
 3.35 TB/s and its float32 operations over 67 TFLOP/s (NVIDIA's H100 SXM
-data sheet), from this run's shapes and data; N1's operations are float64
-at 34 TFLOP/s, counted from its source (ops/cuda_adaptive.flop_count: the
-Miller steps and panels this run's integrals took).  The operations of a node
+data sheet), from this run's shapes and data; N1's operations are float64,
+counted from the engine's function (ops/cuda_adaptive.flop_count: the
+Miller steps and panels this run's integrals took), each at one FP64
+instruction: 132 SMs x 64 lanes x 1.98 GHz, 16.7e12 a second.  The operations of a node
 of K1 and of a marker-stage of K2 / K3 are counted from the kernels'
 machine code (emme_tpu_torch/tools/sass_count.py, an FMA as two) on the
 path a node or marker executes: one side of each Bessel function's split,
@@ -253,6 +258,7 @@ The last three lines are the kernels JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
 
+import hashlib
 import json
 import math
 import os
@@ -393,8 +399,14 @@ NATIVE_SOLVE_BAR = 1e-8
 NATIVE_STEL1024 = complex(-1.656555940938338, 2.490320582544963)
 NATIVE_STEPS = {"stellarator": 3, "tokamak": 5}
 NATIVE_TIME_LIMIT_S = 300
-# NVIDIA H100 SXM data sheet: float64 outside the tensor cores
-PEAK_F64_FLOP_PER_S = 34e12
+# N1's least time: its operations at the FP64 pipe's instruction rate, 132
+# SMs x 64 float64 lanes x the 1.98 GHz boost clock (NVIDIA H100 SXM),
+# 16.7e12 a second.  The data sheet's 34 TFLOP/s counts an FMA as two
+# operations; cuda_adaptive.flop_count counts each add, multiply, divide
+# and libm call of the engine's function once, and none of them is an FMA
+# that the kernel could fuse with another (it builds with --fmad=false), so
+# each needs at least one instruction of its own.
+F64_OPS_PER_S = 132 * 64 * 1.98e9
 # bytes an integral of N1 must move: its pair row (4 float64) and moment
 # read, its value (2 float64), panel count and Miller steps written
 N1_BYTES_PER_INTEGRAL = 32 + 4 + 16 + 4 + 8
@@ -600,6 +612,11 @@ def bound(n_bytes, flops, flop_rate=PEAK_F32_FLOP_PER_S):
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bound_bytes": n_bytes, "bound_flop": flops}
+
+
+def digest(t):
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def rel_err(a, b):
@@ -2472,6 +2489,10 @@ def native_phases(torch, card, certified_omega):
         sc = adaptive.scalars(ph, om)
         k_ms, (got, panels, miller) = timed(
             lambda: cuda_adaptive.integrate(rows, m, sc), torch)
+        shape = dict(cuda_adaptive.LAST_LAUNCH)
+        digests = {"values_digest": digest(got + 0.0),
+                   "panels_digest": digest(panels),
+                   "miller_digest": digest(miller)}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ref, rpanels, rmiller = adaptive.integrate_ref(rows, m, sc)
@@ -2493,8 +2514,7 @@ def native_phases(torch, card, certified_omega):
               f"N1 vs plain, {name}: {max_abs:.3e} < {NATIVE_BAR} x "
               f"{scale:.3e}")
         flop = cuda_adaptive.flop_count(panels, miller, ph.gk_order)
-        bnd = bound(N1_BYTES_PER_INTEGRAL * m.numel(), flop,
-                    PEAK_F64_FLOP_PER_S)
+        bnd = bound(N1_BYTES_PER_INTEGRAL * m.numel(), flop, F64_OPS_PER_S)
         coeff = singularity_coeff_matrix(N_TOK)
         asm_ms, M = timed(lambda: native.assemble(p, coeff, om), torch)
         check(M.is_cuda and M.dtype == torch.complex128
@@ -2512,7 +2532,9 @@ def native_phases(torch, card, certified_omega):
             "miller_steps": int(miller.sum()),
             "kernel_ms": k_ms, "plain_ms": plain_ms, **bnd,
             "share_of_bound": bnd["bound_ms"] / k_ms,
-            "native_assemble_ms": asm_ms}
+            "native_assemble_ms": asm_ms, "slots": shape["slots"],
+            "blocks": shape["blocks"], "registers": shape["registers"],
+            "local_bytes": shape["local_bytes"], **digests}
         emit("native_vs_plain", case=f"{'tok' if name == 'tokamak' else 'stel'}"
              f"{N_TOK}", order=ph.gk_order, max_subdivide=ph.max_subdivide,
              moments=[0, 1, 2] if p.electromagnetic else [0], **cmp[name],

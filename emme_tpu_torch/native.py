@@ -9,7 +9,7 @@ version (``ops/adaptive.py``) where the caller asked for the CPU.  The
 functions take the port's ``Params`` (float64 from ``from_config``) and
 return complex128 tensors on ``p.device``.  ``n_threads`` stays in the
 signatures for parity with ``emme_tpu.native`` and is not used: the card
-runs one warp an integral.
+runs the integrals in N1's warps.
 """
 
 from __future__ import annotations

@@ -345,7 +345,10 @@ def bessel_i01(zr, zi):
             y1r[:L], y1i[:L] = cr, ci
         yk1r[:L], yk1i[:L] = cr, ci
         big = torch.hypot(nr, ni) > BIG
-        sc = torch.where(big, INV_BIG, 1.0)
+        # float64 factors: torch.where of two Python floats is float32,
+        # where 1e-250 is 0
+        sc = torch.where(big, torch.full_like(nr, INV_BIG),
+                         torch.ones_like(nr))
         ykr[:L], yki[:L] = nr * sc, ni * sc
         yk1r[:L], yk1i[:L] = yk1r[:L] * sc, yk1i[:L] * sc
         sr[:L], si[:L] = sr[:L] * sc, si[:L] * sc

@@ -20,16 +20,27 @@ from .. import _build
 from . import adaptive
 
 LAUNCHES = 0
+# the shape of the last launch: slots a warp (integrals a warp holds at a
+# time: 2 under G7K15, 1 under G15K31), blocks (the co-resident grid, or
+# fewer for a small n), threads a block, dynamic shared bytes a block,
+# registers and local (spill) bytes a thread
+LAST_LAUNCH: dict = {}
+_SHAPE_KEYS = ("slots", "blocks", "threads", "smem", "registers",
+               "local_bytes")
 
-# float64 operations counted from csrc/adaptive.cu, each add, subtract,
-# multiply, divide and square root and each libm call (tan, cos, sin, atan,
-# exp, hypot) once: a step of the Miller recurrence (2k, 2k ratio, the
-# quotient's two divisions, the complex product and add, the running sum,
-# hypot); a node outside the recurrence on its shortest path (the node's
-# abscissa, the integrand up to the -40 cutoff, the Bessel function's set-up
-# and normalisation); a node's share of its panel's Kronrod and Gauss sums;
-# a panel's own (mid, half, integral, error, the two tests, the sum).  The
-# bound counts every node on the cutoff path, so it is a least time.
+# float64 operations of the engine's function, as the plain version writes
+# it, each add, subtract, multiply, divide and square root and each libm
+# call (tan, cos, sin, atan, exp, hypot) once: a step of the
+# Miller recurrence (2k, 2k ratio, the quotient's two divisions, the complex
+# product and add, the running sum, hypot); a node outside the recurrence on
+# its shortest path (the node's abscissa, the integrand up to the -40
+# cutoff, the Bessel function's set-up and normalisation); a node's share of
+# its panel's Kronrod and Gauss sums; a panel's own (mid, half, integral,
+# error, the two tests, the sum).  They count the function's work, not a
+# kernel's instructions (N1's step now takes a reciprocal and fma
+# corrections for the divisions and skips most hypot calls), so one bound
+# holds every version of N1 to the same work.  The bound counts every node
+# on the cutoff path, so it is a least time.
 FLOP_PER_MILLER_STEP = 16
 FLOP_PER_NODE = 176
 FLOP_PER_NODE_SUM = 5
@@ -56,7 +67,7 @@ def library():
     if fn.argtypes is None:
         vp = ctypes.c_void_p
         fn.argtypes = [vp, vp, ctypes.c_longlong, vp, ctypes.c_int,
-                       ctypes.c_int, vp, vp, vp, vp]
+                       ctypes.c_int, vp, vp, vp, vp, vp, vp]
         fn.restype = ctypes.c_int
         lib.adaptive_max_subdivide.argtypes = []
         lib.adaptive_max_subdivide.restype = ctypes.c_int
@@ -79,16 +90,21 @@ def _launch(rows, m, sc: adaptive.Scalars):
                          f"{sc.max_subdivide}")
     scal = np.array([sc.om_r, sc.om_i, sc.arc, sc.qR, sc.vt, sc.wsi,
                      sc.eta_i, sc.rel_tol, sc.precision_goal], np.float64)
+    info = np.zeros(len(_SHAPE_KEYS), np.int32)
+    # the slots' work counter: the kernel hands out integrals from it
+    nxt = torch.zeros(1, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.adaptive_launch(rows.data_ptr(), m.data_ptr(), n,
                                   scal.ctypes.data, sc.order,
                                   sc.max_subdivide, out.data_ptr(),
                                   panels.data_ptr(), miller.data_ptr(),
-                                  stream)
+                                  nxt.data_ptr(), stream, info.ctypes.data)
     if err != 0:
         raise RuntimeError(f"adaptive kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    LAST_LAUNCH.clear()
+    LAST_LAUNCH.update(zip(_SHAPE_KEYS, map(int, info)))
     return out, panels, miller
 
 

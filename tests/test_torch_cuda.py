@@ -8,9 +8,9 @@ it; the driver's three kernel routes from an input dict, each against
 the same driver call on CPU tensors; a one-rank NCCL mesh solve against
 the single-device solve; the sorted-window PIC path (plain torch, no
 kernel) against the plain run; and N1 (the float64 adaptive assembly of the
-reference-exact engine) against its plain version, with the tok32 solve
-through it.  Every test here needs a card and skips
-without one.
+reference-exact engine) against its plain version, in its slot and
+work-counter edge cases too, with the tok32 solve through it.  Every test
+here needs a card and skips without one.
 
 This file imports torch, numpy and the port only, so it also runs on a
 machine with a card and without JAX (tests/conftest.py imports JAX):
@@ -813,6 +813,59 @@ def test_adaptive_kernel_matches_plain(card, name):
     assert bool((panels >= 1).all()) and bool((miller > 0).all())
     d = torch.linalg.vector_norm(got - ref, dim=1)
     assert float(d.max()) < 1e-12 * float(ref.abs().max())
+
+
+def _n1_holds_to_plain(rows, m, sc):
+    """N1 in one launch against its plain version: no integral split
+    differently or with other Miller steps, values within 1e-12 of the
+    largest; returns the panel counts."""
+    before = cuda_adaptive.LAUNCHES
+    got, panels, miller = cuda_adaptive.integrate(rows, m, sc)
+    torch.cuda.synchronize()
+    assert cuda_adaptive.LAUNCHES == before + 1
+    assert cuda_adaptive.LAST_LAUNCH["slots"] == (1 if sc.order == 31 else 2)
+    ref, rpanels, rmiller = adaptive.integrate_ref(rows, m, sc)
+    assert got.is_cuda and bool(torch.isfinite(got).all())
+    assert int((panels != rpanels).sum()) == 0
+    assert bool((miller == rmiller).all())
+    d = torch.linalg.vector_norm(got - ref, dim=1)
+    assert float(d.max()) <= 1e-12 * float(ref.abs().max())
+    return panels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tok_odd", "stel_odd", "one", "mixed",
+                                  "deep700"])
+def test_adaptive_slots_match_plain(card, case):
+    """N1's slots (two G7K15 integrals a warp, one G15K31) and its work
+    counter: an odd integral count (a slot empty at the end), n = 1, a batch
+    whose panel counts range widely (mixed d_eta: slots refill at different
+    times), and max_subdivide 700 (its stacks past 48 KB of shared memory a
+    block), each against the plain version in one launch."""
+    name = "stellarator" if case == "stel_odd" else "tokamak"
+    rows, m, sc = _adaptive_inputs(name, 128, card)
+    if case in ("tok_odd", "stel_odd"):
+        rows, m = rows[:2 * 4001 + 1], m[:2 * 4001 + 1]
+    elif case == "one":
+        rows, m = rows[5:6], m[5:6]
+    else:
+        p = et.from_config(_cfg("tokamak", 128), device=card)
+        ph = adaptive.phys_from_params(p)
+        g = torch.Generator().manual_seed(5)
+        k = 512 if case == "mixed" else 64
+        # eta in [-L, 0], d_eta from 1e-4 (39 panels) to 40 (1 panel)
+        eta = -float(p.length) * torch.rand(k, generator=g,
+                                            dtype=torch.float64)
+        d_eta = 10.0 ** (torch.rand(k, generator=g, dtype=torch.float64)
+                         * 5.6 - 4.0)
+        rows = adaptive.pair_rows(ph, eta.to(card), (eta + d_eta).to(card))
+        m = torch.zeros(k, dtype=torch.int32, device=card)
+        if case == "deep700":
+            sc = adaptive.Scalars(**{**sc.__dict__, "max_subdivide": 700})
+    panels = _n1_holds_to_plain(rows, m, sc)
+    assert int(panels.numel()) == rows.shape[0]
+    if case == "mixed":
+        assert int(panels.max()) >= 10 * int(panels.min())
 
 
 @pytest.mark.cuda

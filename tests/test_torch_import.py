@@ -29,6 +29,7 @@ MODULES = [
     "emme_tpu_torch.tools", "emme_tpu_torch.tools.pic_bench",
     "emme_tpu_torch.tools.sass_count", "emme_tpu_torch.tools.spmv_bench",
     "emme_tpu_torch.tools.div_const_check",
+    "emme_tpu_torch.tools.native_bench",
 ]
 
 
