@@ -403,9 +403,12 @@ NATIVE_TIME_LIMIT_S = 300
 # SMs x 64 float64 lanes x the 1.98 GHz boost clock (NVIDIA H100 SXM),
 # 16.7e12 a second.  The data sheet's 34 TFLOP/s counts an FMA as two
 # operations; cuda_adaptive.flop_count counts each add, multiply, divide
-# and libm call of the engine's function once, and none of them is an FMA
-# that the kernel could fuse with another (it builds with --fmad=false), so
-# each needs at least one instruction of its own.
+# and libm call of the engine's function once.  The engine's roundings
+# forbid fusing any of them but the exact products by 2 of the Miller
+# step's running sum (fma(2, y, s): two counted operations, one
+# instruction), and the step's two quotients take three instructions each
+# where each is counted once, so its instructions stay above its 16
+# counted operations and the count at this rate is a least time.
 F64_OPS_PER_S = 132 * 64 * 1.98e9
 # bytes an integral of N1 must move: its pair row (4 float64) and moment
 # read, its value (2 float64), panel count and Miller steps written

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface, ``_build/lib<name>-<hash>.so``, loaded with ``ctypes``.
-The hash covers the source and the compiler flags, so an edited source
-builds anew and an unchanged one is loaded from the previous build.  Only
+The hash covers the source, the headers in ``csrc`` and the compiler
+flags, so an edited source or header builds anew and an unchanged one is
+loaded from the previous build.  Only
 the sources in the package are read; nothing is fetched.
 """
 
@@ -49,10 +50,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(flags(name)).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.h")):   # any a source may include
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> dict:

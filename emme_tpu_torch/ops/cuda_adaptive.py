@@ -22,11 +22,9 @@ from . import adaptive
 LAUNCHES = 0
 # the shape of the last launch: slots a warp (integrals a warp holds at a
 # time: 2 under G7K15, 1 under G15K31), blocks (the co-resident grid, or
-# fewer for a small n), threads a block, dynamic shared bytes a block,
-# registers and local (spill) bytes a thread
+# fewer for a small n), registers and local (spill) bytes a thread
 LAST_LAUNCH: dict = {}
-_SHAPE_KEYS = ("slots", "blocks", "threads", "smem", "registers",
-               "local_bytes")
+_SHAPE_KEYS = ("slots", "blocks", "registers", "local_bytes")
 
 # float64 operations of the engine's function, as the plain version writes
 # it, each add, subtract, multiply, divide and square root and each libm

@@ -1,6 +1,6 @@
 """Instruction counts of the CUDA kernels, from their machine code.
 
-    python3 emme_tpu_torch/tools/sass_count.py [--root DIR ...]
+    python3 emme_tpu_torch/tools/sass_count.py
 
 Builds the package's kernels (nvcc, as at first use), disassembles each
 library with ``cuobjdump -sass`` and prints one JSON line per kernel
@@ -21,20 +21,9 @@ loads.  For K3 the counted function is one stage's marker loop of
 ``pic_mega_kernel`` on its own (``k3_stage<s>``: J0 and the phase factor
 carried in, not computed), which the scratch builds of ``pic.cu`` (one of
 them with both branches) wrap in a kernel.
-
-For N1 (``adaptive.cu``) a line with ``"what": "miller_step"`` gives, for each
-instance of its kernel, what one step of the Miller recurrence executes: the
-innermost loop that converts k to double (``I2F.F64``, once a step), walked
-once along the path that takes every forward branch inside it (no rescale,
-no division slow path), divided by the steps it holds (the compiler unrolls
-it).  ``--root DIR`` (repeatable) counts the N1 of another checkout too, built
-with that checkout's ``_build.py``: give the parent commit unpacked beside
-this one to compare two versions of the step.
 """
 
-import argparse
 import collections
-import importlib.util
 import json
 import pathlib
 import re
@@ -45,13 +34,9 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
-KERNELS = ("kappa", "pic", "spmv", "adaptive")
+KERNELS = ("kappa", "pic", "spmv")
 BRANCHES = {0: "both", 1: "taylor", 2: "asymptotic"}
 INSTR = re.compile(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_.]+)")
-# address, opcode and operands of an instruction
-ADDR_INSTR = re.compile(
-    r"^\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T\d]+\s+)?([A-Z0-9_.]+)([^;]*);")
-F64_OTHER = ("I2F.F64", "F2I.F64", "MUFU.RCP64H", "MUFU.RSQ64H")
 # One stage's marker loop of K3, drift-center on, as a kernel of its own
 # (the small-grid form: field and histogram in shared memory).
 K3_STAGES = """
@@ -91,13 +76,6 @@ def kernel_name(demangled):
     return (m.group(1) + (m.group(2) or "")) if m else demangled
 
 
-def demangled(fn, filt):
-    if not filt:
-        return fn
-    return subprocess.run([filt, fn], capture_output=True,
-                          text=True).stdout.strip() or fn
-
-
 def report(library, branch, binary):
     """One JSON line per kernel function of ``binary``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -105,7 +83,10 @@ def report(library, branch, binary):
     sass = subprocess.run([tool, "-sass", str(binary)], capture_output=True,
                           text=True, check=True).stdout
     for fn, ops in count(sass).items():
-        pretty = demangled(fn, filt)
+        pretty = fn
+        if filt:
+            pretty = subprocess.run([filt, fn], capture_output=True,
+                                    text=True).stdout.strip() or fn
         f32 = {k: v for k, v in ops.items()
                if k.startswith("F") and k not in ("FLO", "F2I", "F2F",
                                                   "FRND", "F2FP")}
@@ -125,79 +106,6 @@ def report(library, branch, binary):
         }), flush=True)
 
 
-def instructions(sass):
-    """{function: [(address, opcode, operands)]} of a cuobjdump -sass dump."""
-    out, cur = {}, None
-    for line in sass.splitlines():
-        fn = re.match(r"\s*Function : (\S+)", line)
-        if fn:
-            cur = out.setdefault(fn.group(1), [])
-            continue
-        m = ADDR_INSTR.match(line)
-        if m and cur is not None:
-            cur.append((int(m.group(1), 16), m.group(2), m.group(3)))
-    return out
-
-
-def is_f64(op):
-    return (op.startswith("D") and not op.startswith("DEPBAR")) or \
-        op.startswith(F64_OTHER)
-
-
-def miller_step(ins):
-    """What one Miller step of an N1 kernel executes, or None: the innermost
-    loop holding an I2F.F64, walked once taking every forward branch inside
-    it, over the I2F.F64s (steps) it holds."""
-    at = {a: i for i, (a, _, _) in enumerate(ins)}
-    loop = None
-    for i, (a, op, args) in enumerate(ins):
-        m = re.search(r"(0x[0-9a-f]+)", args) if op == "BRA" else None
-        t = int(m.group(1), 16) if m else None
-        if t is not None and t < a and t in at:
-            body = ins[at[t]:i + 1]
-            if any(o.startswith("I2F.F64") for _, o, _ in body) and (
-                    loop is None or len(body) < len(loop)):
-                loop = body
-    if loop is None:
-        return None
-    at = {a: i for i, (a, _, _) in enumerate(loop)}
-    walked, i = [], 0
-    while i < len(loop):
-        a, op, args = loop[i]
-        walked.append(op)
-        m = re.search(r"(0x[0-9a-f]+)", args) if op == "BRA" else None
-        t = int(m.group(1), 16) if m else None
-        i = at[t] if t is not None and a < t and t in at else i + 1
-    steps = sum(op.startswith("I2F.F64") for _, op, _ in loop)
-    ops = collections.Counter(op.split(".")[0] for op in walked)
-    return {"steps_a_pass": steps, "static": len(loop),
-            "instructions_a_step": len(walked) / steps,
-            "float64_a_step": sum(map(is_f64, walked)) / steps,
-            "top": dict(ops.most_common(10))}
-
-
-def report_miller(root, binary):
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(binary)], capture_output=True,
-                          text=True, check=True).stdout
-    filt = shutil.which("c++filt")
-    for fn, ins in instructions(sass).items():
-        step = miller_step(ins)
-        if step:
-            print(json.dumps({"what": "miller_step", "root": str(root),
-                              "function": kernel_name(demangled(fn, filt)),
-                              **step}), flush=True)
-
-
-def build_adaptive(root):
-    """N1's library as the checkout at ``root`` builds it."""
-    spec = importlib.util.spec_from_file_location(
-        f"_build_{abs(hash(str(root)))}", root / "emme_tpu_torch" / "_build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.build("adaptive")["path"]
-
-
 def one_branch_cubin(nvcc, name, branch, scratch):
     """``csrc/<name>.cu`` with one Bessel branch compiled, as a cubin in
     ``scratch`` (device code only; never loaded)."""
@@ -215,9 +123,6 @@ def one_branch_cubin(nvcc, name, branch, scratch):
 
 
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", action="append", type=pathlib.Path, default=[])
-    roots = [r.resolve() for r in ap.parse_args().root]
     sys.path.insert(0, str(ROOT))
     from emme_tpu_torch import _build
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(7) as pool:
@@ -230,9 +135,6 @@ def main():
             report(name, "both", built[name].result()["path"])
         for (name, b), cubin in cubins.items():
             report(f"{name} (scratch build)", BRANCHES[b], cubin.result())
-        report_miller(ROOT, built["adaptive"].result()["path"])
-        for root in roots:
-            report_miller(root, build_adaptive(root))
 
 
 if __name__ == "__main__":

@@ -15,6 +15,11 @@ those rewrites rounds as the operation it replaces:
   range (``kRecipMin``, ``kRecipMax``, read from the source);
 * a step-for-step model of the new recurrence gives ``adaptive.bessel_i01``'s
   values and step counts bit for bit, rescales included;
+* the kernel's own Bessel code (``csrc/adaptive_bessel.h``, which
+  ``adaptive.cu`` includes), built for the host with g++, gives them bit for
+  bit too, signs of zero included, through both instances of its
+  recurrence: the reciprocal one and the one that divides (z on the real or
+  imaginary axis, or so small that den leaves the reciprocal's range);
 * the filter never skips a step where hypot passes 1e250.
 
 Python 3.12 has no ``math.fma``: ``fma_exact`` rounds the exact rational
@@ -24,11 +29,14 @@ product and sum, the tail added with rounding to odd, one last rounding to
 nearest), exact where nothing overflows or underflows; the data's operands
 are asserted inside that range and ``fma_vec`` is held to ``fma_exact``.
 """
+import ctypes
 import functools
 import json
 import math
 import pathlib
 import re
+import shutil
+import subprocess
 from fractions import Fraction
 
 import numpy as np
@@ -43,7 +51,7 @@ from emme_tpu_torch.ops import adaptive
 
 torch.set_num_threads(2)
 
-SRC = pathlib.Path(et.__file__).resolve().parent / "csrc" / "adaptive.cu"
+SRC = pathlib.Path(et.__file__).resolve().parent / "csrc" / "adaptive_bessel.h"
 INPUTS = pathlib.Path(__file__).resolve().parent / "goldens" / "inputs"
 GEOMETRIES = ["tokamak", "stellarator", "cylinder", "cylinder_old",
               "taloyMagneticDrift"]
@@ -55,7 +63,7 @@ CHUNK = 1 << 20
 
 
 def _const(name):
-    """A ``constexpr double`` of the kernel's source."""
+    """A ``constexpr double`` of the kernel's Bessel code."""
     m = re.search(rf"constexpr double {name} = ([^;]+);", SRC.read_text())
     v = m.group(1).strip()
     return float.fromhex(v) if v.startswith("0x") else float(v)
@@ -140,6 +148,15 @@ def quot_exact(num, den):
 
 def _bits(x):
     return np.asarray(x, np.float64).view(np.int64)
+
+
+def _same(a, b):
+    """Bit for bit, signs of zero included, where not NaN; NaN in the same
+    places (a NaN's sign and payload carry nothing)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    nan = np.isnan(a)
+    return (np.array_equal(nan, np.isnan(b))
+            and np.array_equal(_bits(a[~nan]), _bits(b[~nan])))
 
 
 # ---------------------------------------------------------------------------
@@ -299,6 +316,52 @@ def test_quotient_is_ieee_at_edges(family):
 
 
 # ---------------------------------------------------------------------------
+# Bessel arguments: the assemblies', and the edges of the reciprocal range
+# ---------------------------------------------------------------------------
+
+def bessel_cases(group):
+    """(zr, zi, recip) of one group of seeded Bessel arguments: recip, whether
+    the kernel's reciprocal recurrence runs for them (else the dividing one).
+
+    tokamak, stellarator: 1,500 z of the 32-point assembly and 40 with 700 <=
+    |Re z| <= 1500, whose recurrences pass 1e250 and rescale.  real_axis: z
+    real (Im z = +-0) or imaginary (Re z = +-0), where ratio is 0, up to |z|
+    = 1500.  tiny: |z| from 1e-160 to 1e-77 (den under 2^-250), and z whose
+    ratio Im w / Re w lies under 2^-250, down to subnormal (where the
+    reciprocal would round some Im I0, Im I1 otherwise than the division
+    does).  Most of the tiny |z| overflow the
+    recurrence (its factor 2k / |w| a step is past what the 1e250 rescale
+    absorbs) and give NaN in the plain version as in the engine."""
+    rng = np.random.default_rng(3)
+    if group in ("tokamak", "stellarator"):
+        zr, zi, _, _ = assembly_z(group)
+        sel = rng.choice(zr.size, 1500, replace=False)
+        big_r = rng.uniform(700.0, 1500.0, 40) * rng.choice([-1.0, 1.0], 40)
+        big_i = rng.uniform(-300.0, 300.0, 40)
+        return (np.concatenate([zr[sel], big_r]),
+                np.concatenate([zi[sel], big_i]), True)
+    sign = rng.choice([-1.0, 1.0], 200)
+    if group == "real_axis":
+        mag = np.concatenate([10.0 ** rng.uniform(-3.0, 2.0, 160),
+                              rng.uniform(700.0, 1500.0, 40)])
+        zero = np.where(rng.uniform(size=200) < 0.5, 0.0, -0.0)
+        axis = rng.uniform(size=200) < 0.75
+        return (np.where(axis, sign * mag, zero),
+                np.where(axis, zero, sign * np.minimum(mag, 200.0)), False)
+    phase = rng.uniform(-np.pi, np.pi, 100)
+    mag = 10.0 ** rng.uniform(-160.0, -77.0, 100)
+    # Im w / Re w down to subnormal: there 2k ratio / den is subnormal and
+    # the reciprocal's correction is no longer exact
+    ratio = np.concatenate([10.0 ** rng.uniform(-300.0, -76.0, 100),
+                            10.0 ** rng.uniform(-323.0, -300.0, 2000)])
+    ratio *= rng.choice([-1.0, 1.0], ratio.size)
+    re = rng.uniform(0.1, 40.0, ratio.size) * rng.choice([-1.0, 1.0],
+                                                         ratio.size)
+    return (np.concatenate([mag * np.cos(phase), re]),
+            np.concatenate([mag * np.sin(phase), np.abs(re) * ratio]), False)
+
+
+# ---------------------------------------------------------------------------
 # (b) the new Miller step, modelled step for step
 # ---------------------------------------------------------------------------
 
@@ -327,8 +390,9 @@ def miller_model(zr, zi):
         ar = a * rt[:L]
         nr = np.where(sm[:L], ar, a)
         ni = np.where(sm[:L], -a, -ar)
-        tr = np.where(rc[:L], quot_vec(nr, dn[:L], y[:L]), nr / dn[:L])
-        ti = np.where(rc[:L], quot_vec(ni, dn[:L], y[:L]), ni / dn[:L])
+        tr, ti, r = nr / dn[:L], ni / dn[:L], rc[:L]
+        tr[r] = quot_vec(nr[r], dn[:L][r], y[:L][r])
+        ti[r] = quot_vec(ni[r], dn[:L][r], y[:L][r])
         cr, ci = ykr[:L].copy(), yki[:L].copy()
         pr = tr * cr - ti * ci
         pi = tr * ci + ti * cr
@@ -354,24 +418,105 @@ def miller_model(zr, zi):
     return out, rescales[inv]
 
 
-@pytest.mark.parametrize("name", ["tokamak", "stellarator"])
+def _recip(zr, zi):
+    _, _, _, ratio, den = (t.numpy() for t in miller_setup(
+        torch.from_numpy(zr), torch.from_numpy(zi)))
+    return ((np.abs(den) >= RECIP_MIN) & (np.abs(den) <= RECIP_MAX)
+            & (np.abs(ratio) >= RECIP_MIN))
+
+
+@pytest.mark.parametrize("name", ["tokamak", "stellarator", "real_axis",
+                                  "tiny"])
 def test_miller_model_is_plain_bessel(name):
-    """1,500 z of the 32-point assembly and 40 seeded z with 700 <= |Re z|
-    <= 1500, whose recurrences each pass 1e250 (|I_k| grows as e^|Re z|):
-    the model's I0, I1, zs and steps are ops/adaptive.bessel_i01's, bit for
-    bit."""
-    rng = np.random.default_rng(3)
-    zr, zi, _, _ = assembly_z(name)
-    sel = rng.choice(zr.size, 1500, replace=False)
-    big_r = rng.uniform(700.0, 1500.0, 40) * rng.choice([-1.0, 1.0], 40)
-    big_i = rng.uniform(-300.0, 300.0, 40)
-    zr = np.concatenate([zr[sel], big_r])
-    zi = np.concatenate([zi[sel], big_i])
+    """The model's I0, I1, zs and steps are ops/adaptive.bessel_i01's, bit
+    for bit, signs of zero included (``_same``), on each group of
+    ``bessel_cases``:
+    those of the assemblies, whose 40 large z each pass 1e250 (|I_k| grows
+    as e^|Re z|), take the reciprocal; the real axis and the tiny z divide.
+    """
+    zr, zi, recip = bessel_cases(name)
+    assert (_recip(zr, zi) == recip).all()
     got, rescales = miller_model(zr, zi)
     ref = adaptive.bessel_i01(torch.from_numpy(zr), torch.from_numpy(zi))
-    assert (rescales[-40:] > 0).all() and not rescales[:-40].any()
+    normal = np.hypot(zr, zi) >= 1e-3
+    assert ((rescales > 0) == (np.abs(zr) >= 700.0))[normal].all()
     for g, r in zip(got, ref):
-        assert np.array_equal(g.view(np.int64), r.numpy().view(np.int64))
+        assert _same(g, r.numpy())
+
+
+# ---------------------------------------------------------------------------
+# the kernel's own Bessel code, built for the host
+# ---------------------------------------------------------------------------
+
+HARNESS = r"""
+#include "adaptive_bessel.h"
+
+extern "C" void n1_bessel(const double* zr, const double* zi, long long n,
+                          double* out, int* steps) {
+  for (long long k = 0; k < n; ++k) {
+    C i0, i1, zs;
+    bessel_i01(C{zr[k], zi[k]}, i0, i1, zs, steps[k]);
+    const double o[6] = {i0.r, i0.i, i1.r, i1.i, zs.r, zs.i};
+    for (int j = 0; j < 6; ++j) out[6 * k + j] = o[j];
+  }
+}
+
+extern "C" int n1_recip_range(double den, double ratio) {
+  return recip_range(den, ratio);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def kernel_bessel(tmp_path_factory):
+    """csrc/adaptive_bessel.h compiled for the host with g++, without FMA
+    contraction (as nvcc --fmad=false builds the kernel): (n1_bessel,
+    n1_recip_range)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernel's Bessel code for the host")
+    tmp = tmp_path_factory.mktemp("n1_bessel")
+    (tmp / "harness.cc").write_text(HARNESS)
+    lib = tmp / "libn1_bessel.so"
+    subprocess.run([gxx, "-std=c++17", "-O2", "-ffp-contract=off",
+                    "-fno-fast-math", "-shared", "-fPIC", "-I", str(SRC.parent),
+                    "-o", str(lib), str(tmp / "harness.cc")], check=True)
+    so = ctypes.CDLL(str(lib))
+    vp = ctypes.c_void_p
+    so.n1_bessel.argtypes = [vp, vp, ctypes.c_longlong, vp, vp]
+    so.n1_bessel.restype = None
+    so.n1_recip_range.argtypes = [ctypes.c_double, ctypes.c_double]
+    so.n1_recip_range.restype = ctypes.c_int
+    return so
+
+
+@pytest.mark.parametrize("name", ["tokamak", "stellarator", "real_axis",
+                                  "tiny"])
+def test_kernel_bessel_is_plain_bessel(kernel_bessel, name):
+    """The kernel's bessel_i01, from its own source, against
+    ops/adaptive.bessel_i01 on each group of ``bessel_cases``: I0, I1, zs
+    bit for bit, signs of zero included (``_same``), and the same steps;
+    each z takes
+    the instance of the recurrence the group names (by the kernel's own
+    recip_range).  The dividing instance keeps the engine's rounding where
+    the reciprocal's correction is not exact: a subnormal 2k ratio / den
+    (the tiny group, where the reciprocal would change some Im I0 and Im
+    I1) and a -0 numerator on the axes (whose +0 from the correction the
+    next sums happen to absorb)."""
+    zr, zi, recip = bessel_cases(name)
+    n = zr.size
+    out = np.empty((n, 6))
+    steps = np.empty(n, np.int32)
+    kernel_bessel.n1_bessel(zr.ctypes.data, zi.ctypes.data, n,
+                            out.ctypes.data, steps.ctypes.data)
+    _, _, _, ratio, den = (t.numpy() for t in miller_setup(
+        torch.from_numpy(zr), torch.from_numpy(zi)))
+    took = [kernel_bessel.n1_recip_range(d, r) for d, r in zip(den, ratio)]
+    assert all(bool(t) == recip for t in took)
+    ref = adaptive.bessel_i01(torch.from_numpy(zr), torch.from_numpy(zi))
+    for j in range(6):
+        assert _same(out[:, j], ref[j].numpy()), j
+    assert np.array_equal(steps, ref[6].numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -401,35 +546,3 @@ def test_rescale_filter_margin():
     assert math.sqrt(2.0) * FILTER * (1 + 2.0 ** -50) < BIG
     for x, y in ((FILTER, FILTER), (FILTER, 0.0), (FILTER, -FILTER)):
         assert max(math.hypot(x, y), np.hypot(x, y)) < BIG
-
-
-# ---------------------------------------------------------------------------
-# the Miller step's machine-code count (tools/sass_count.py)
-# ---------------------------------------------------------------------------
-
-_SASS = """
-        Function : _ZN4test6kernelEv
-        /*0000*/                   MOV R1, c[0x0][0x28] ;
-        /*0010*/                   I2F.F64 R4, R2 ;
-        /*0020*/                   DMUL R6, R4, R8 ;
-        /*0030*/                   DSETP.GT.AND P0, PT, R6, R10, PT ;
-        /*0040*/              @!P0 BRA 0x70 ;
-        /*0050*/                   MUFU.RSQ64H R12, R6 ;
-        /*0060*/                   DMUL R6, R6, R12 ;
-        /*0070*/                   I2F.F64 R4, R3 ;
-        /*0080*/                   DFMA R14, R4, 2, R14 ;
-        /*0090*/                   ISETP.GT.AND P1, PT, R2, 0x2, PT ;
-        /*00a0*/               @P1 BRA 0x10 ;
-        /*00b0*/                   EXIT ;
-"""
-
-
-def test_sass_count_miller_step():
-    """The loop holding I2F.F64, walked once with every forward branch taken
-    (the rescale block skipped), over its two unrolled steps."""
-    from emme_tpu_torch.tools import sass_count
-    (fn, ins), = sass_count.instructions(_SASS).items()
-    step = sass_count.miller_step(ins)
-    assert step["steps_a_pass"] == 2 and step["static"] == 10
-    assert step["instructions_a_step"] == 8 / 2
-    assert step["float64_a_step"] == 5 / 2    # I2F.F64 x2, DMUL, DSETP, DFMA

@@ -835,19 +835,26 @@ def _n1_holds_to_plain(rows, m, sc):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["tok_odd", "stel_odd", "one", "mixed",
-                                  "deep700"])
+                                  "deep700", "real_axis", "tiny_ratio"])
 def test_adaptive_slots_match_plain(card, case):
     """N1's slots (two G7K15 integrals a warp, one G15K31) and its work
     counter: an odd integral count (a slot empty at the end), n = 1, a batch
     whose panel counts range widely (mixed d_eta: slots refill at different
     times), and max_subdivide 700 (its stacks past 48 KB of shared memory a
-    block), each against the plain version in one launch."""
+    block), each against the plain version in one launch.  And the Miller
+    recurrence's dividing instance, which no assembly takes: beta1 = 0
+    (lambda = 1, so every Bessel argument is real and its ratio 0) and
+    beta1 = 1e-310 (|Im z| under 1e-307, so |ratio| is under 2^-250 and
+    2k ratio / den reaches the subnormal range)."""
     name = "stellarator" if case == "stel_odd" else "tokamak"
     rows, m, sc = _adaptive_inputs(name, 128, card)
     if case in ("tok_odd", "stel_odd"):
         rows, m = rows[:2 * 4001 + 1], m[:2 * 4001 + 1]
     elif case == "one":
         rows, m = rows[5:6], m[5:6]
+    elif case in ("real_axis", "tiny_ratio"):
+        rows, m = rows[:2001].clone(), m[:2001]
+        rows[:, 1] = 0.0 if case == "real_axis" else 1e-310
     else:
         p = et.from_config(_cfg("tokamak", 128), device=card)
         ph = adaptive.phys_from_params(p)

@@ -108,6 +108,29 @@ def test_miller_bessel_vs_scipy(goldens_dir):
                           np.floor(aw + 9 * np.sqrt(aw)).astype(int) + 24)
 
 
+def test_miller_bessel_vs_scipy_rescaled():
+    """Where the recurrence passes 1e250 and rescales by 1e-250 (|I_k| grows
+    as e^|Re z|): 80 seeded z with 700 <= |Re z| <= 1500, |Im z| <= 300, and
+    z on the real axis at both signs, against scipy's ive at 1e-12 relative
+    (scipy stays within 6e-16 of a 40-digit mpmath there)."""
+    rng = np.random.default_rng(21)
+    re = rng.uniform(700.0, 1500.0, 80) * rng.choice([-1.0, 1.0], 80)
+    im = rng.uniform(-300.0, 300.0, 80)
+    z = np.concatenate([re + 1j * im, [700.0, -900.0, 1500.0, -1500.0]])
+    zt = torch.tensor(z)
+    i0r, i0i, i1r, i1i, _, _, _ = adaptive.bessel_i01(zt.real, zt.imag)
+    i0 = (i0r + 1j * i0i).numpy()
+    i1 = (i1r + 1j * i1i).numpy()
+    neg = z.real < 0
+    w = np.where(neg, -z, z)
+    phase = np.exp(-1j * w.imag)
+    ref0 = sp.ive(0, w) * phase
+    ref1 = np.where(neg, -1.0, 1.0) * sp.ive(1, w) * phase
+    assert np.isfinite(i0).all() and np.isfinite(i1).all()
+    assert (np.abs(i0 - ref0) / np.abs(ref0)).max() < 1e-12
+    assert (np.abs(i1 - ref1) / np.abs(ref1)).max() < 1e-12
+
+
 def _by_omega(cases):
     """The reference's kappa cases by omega: ((m, eta, eta', omega),
     kappa_i + kappa_e)."""
