@@ -1,0 +1,1 @@
+"""Part of the benchmark of emme_tpu_torch."""
