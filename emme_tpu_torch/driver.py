@@ -49,7 +49,7 @@ from .parallel import sharded, spike
 from .solvers import cuda_pic, eigen, pic, sparse_eigen
 from .utils import debug as debug_mod
 from .utils import provenance
-from .utils.timer import Timer, section
+from .utils.timer import Timer, host_read, section, span
 
 
 def _is_scan_spec(v) -> bool:
@@ -109,7 +109,7 @@ def filter_input(cfg: dict) -> dict:
 def _typed_array(vec) -> list:
     """Complex vector -> [[re, im], ...] matching the reference's typed-array
     output extension (JsonParser.h:260-278)."""
-    v = vec.detach().cpu().numpy()
+    v = host_read(vec.detach().cpu).numpy()
     return [[float(x.real), float(x.imag)] for x in v]
 
 
@@ -135,7 +135,8 @@ def solve_once_eigen(cfg: dict, omega_guess: complex, matrix_file=None,
     _check_mesh(mesh)
     if mesh is not None:
         device = mesh.device
-    p = params_mod.from_config(cfg, dtype=dtype, device=device)
+    with span("driver.params"):
+        p = params_mod.from_config(cfg, dtype=dtype, device=device)
     tol = float(cfg.get("iteration_precision", 1e-6))
 
     backend = cfg.get("eigen_backend", "dense")
@@ -226,26 +227,29 @@ def solve_once_eigen(cfg: dict, omega_guess: complex, matrix_file=None,
         raise ValueError(
             f"quad_guard must be 'warn', 'refine' or 'off', got {guard_mode!r}")
     if guard_mode != "off":
-        grid = Grid.create(p.length, p.npoints, dtype=dtype, device=p.device)
-        # guard with the SAME tier meshes assembly used (a tiered f32 run
-        # evaluates far pairs on 2-4x coarser meshes; guarding only the base
-        # mesh would miss their under-resolution) and, on the sparse
-        # backend, only the kept band (pairs beyond it are never assembled)
-        tiered = cfg.get("quad_tiered")
-        if tiered is None:
-            tiered = dtype == torch.float32
-        tiers = None
-        if tiered:
-            dxf = 2.0 * float(p.length) / (p.npoints - 1)
-            tiers = kernels.tier_thresholds_ij(dxf, p.npoints)
-        max_dij = None
-        if backend == "sparse":
-            block, h = stats["block"], stats["h"]
-            max_dij = sparse_eigen.em_de_max(p.npoints, h, block) \
-                if p.electromagnetic else (h + 1) * block - 1
-        guard_stats = eigen.quadrature_guard(p, grid, omega, quad=quad,
-                                             chunk=chunk, tiers=tiers,
-                                             max_dij=max_dij)
+        with span("driver.guard"):
+            grid = Grid.create(p.length, p.npoints, dtype=dtype,
+                               device=p.device)
+            # guard with the SAME tier meshes assembly used (a tiered f32
+            # run evaluates far pairs on 2-4x coarser meshes; guarding only
+            # the base mesh would miss their under-resolution) and, on the
+            # sparse backend, only the kept band (pairs beyond it are never
+            # assembled)
+            tiered = cfg.get("quad_tiered")
+            if tiered is None:
+                tiered = dtype == torch.float32
+            tiers = None
+            if tiered:
+                dxf = 2.0 * host_read(float, p.length) / (p.npoints - 1)
+                tiers = kernels.tier_thresholds_ij(dxf, p.npoints)
+            max_dij = None
+            if backend == "sparse":
+                block, h = stats["block"], stats["h"]
+                max_dij = sparse_eigen.em_de_max(p.npoints, h, block) \
+                    if p.electromagnetic else (h + 1) * block - 1
+            guard_stats = eigen.quadrature_guard(p, grid, omega, quad=quad,
+                                                 chunk=chunk, tiers=tiers,
+                                                 max_dij=max_dij)
         if guard_stats["frac_flagged"] > 0:
             msg = (f"quadrature guard: {guard_stats['frac_flagged']:.1%} of "
                    f"sampled kernel integrals fail the reference acceptance "

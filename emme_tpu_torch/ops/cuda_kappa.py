@@ -31,10 +31,8 @@ from .. import _build
 from . import kernels, quadrature
 from .bessel import asym_coeffs
 
-# kernel launches made by kappa_pairs_fused (one per call on a CUDA tensor),
-# and the same launches by the tuple of velocity moments they computed
+# kernel launches made by kappa_pairs_fused (one per call on a CUDA tensor)
 LAUNCHES = 0
-LAUNCHES_BY_MS: dict = {}
 
 MAX_ORDER = 31
 _TAYLOR_TERMS = 26   # f32 Bessel hybrid term counts, as pallas_kappa.py:92-94
@@ -183,7 +181,6 @@ def _launch(mid, halfw, pair, scal, order, ms):
     if err != 0:
         raise RuntimeError(f"kappa kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
-    LAUNCHES_BY_MS[tuple(ms)] = LAUNCHES_BY_MS.get(tuple(ms), 0) + 1
     return out
 
 

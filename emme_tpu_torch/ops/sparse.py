@@ -201,9 +201,8 @@ def bsr_matvec_ref(op: BSROperator, x):
 bsr_matvec = cuda_spmv.bsr_matvec
 
 
-def pick_spmv(op: BDIAOperator, method: str | None = None):
-    """Select the SpMV route for a banded operator; returns
-    (matvec(x) -> y, name).
+def spmv_route(op: BDIAOperator, method: str | None = None) -> str:
+    """The SpMV route ``pick_spmv`` takes for a banded operator.
 
     ``method``: "bdia" (the batched block-diagonal matmul), "bsr" (kernel
     K5 through ``bsr_matvec``) or None = auto.  The auto rule comes from
@@ -214,12 +213,20 @@ def pick_spmv(op: BDIAOperator, method: str | None = None):
     package's "bdia"."""
     if method is None:
         method = "bsr" if op.data.is_cuda else "bdia"
+    if method not in ("bdia", "bsr"):
+        raise ValueError(
+            f"spmv method must be 'bdia' or 'bsr', got {method!r}")
+    return method
+
+
+def pick_spmv(op: BDIAOperator, method: str | None = None):
+    """Select the SpMV route for a banded operator (``spmv_route``);
+    returns (matvec(x) -> y, name)."""
+    method = spmv_route(op, method)
     if method == "bdia":
         return (lambda x: bdia_matvec(op, x)), "bdia"
-    if method == "bsr":
-        bsr = bdia_to_bsr(op)
-        return (lambda x: bsr_matvec(bsr, x)), "bsr"
-    raise ValueError(f"spmv method must be 'bdia' or 'bsr', got {method!r}")
+    bsr = bdia_to_bsr(op)
+    return (lambda x: bsr_matvec(bsr, x)), "bsr"
 
 
 def save_bdia_dump(op: BDIAOperator, path):

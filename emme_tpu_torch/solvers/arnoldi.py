@@ -31,6 +31,7 @@ from ..ops import kernels
 from ..ops.singularity import singularity_coeff_matrix
 from ..params import default_device
 from ..parallel import mesh as mesh_mod
+from ..utils.timer import host_read
 from . import eigen
 
 def arnoldi_factorization(solve_B, n: int, m_krylov: int,
@@ -71,7 +72,7 @@ def ritz_from_hessenberg(H, sigma, m_krylov: int):
     |mu| descending (closest to sigma first).  Returns numpy (omegas,
     eigvecs)."""
     if isinstance(H, torch.Tensor):
-        H = H.detach().cpu().numpy()
+        H = host_read(H.detach().cpu).numpy()
     Hm = np.asarray(H, np.complex128)[:m_krylov, :m_krylov]
     mu, Y = np.linalg.eig(Hm)
     order = np.argsort(-np.abs(mu))

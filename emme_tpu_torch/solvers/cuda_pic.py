@@ -51,6 +51,7 @@ import torch
 
 from .. import _build
 from ..ops.bessel import bessel_j0, bessel_j1
+from ..utils.timer import span
 from . import pic
 from .pic import RK_COEF, PICState
 
@@ -216,46 +217,53 @@ def run(p, marker_per_cell: int, n_steps: int, dt, generator=None,
     and deposits: the single bf16 pass of "default" was a property of the
     TPU's matrix unit, and nothing here is a matrix product."""
     global LAST_LAUNCH
-    if p.dtype != _F32:
-        raise ValueError("fused PIC is f32-only (CUDA kernels)")
-    if launch not in ("auto", "single", "stages"):
-        raise ValueError(f"launch must be auto|single|stages, got {launch}")
-    if precision not in _PRECISIONS:
-        raise ValueError(f"precision must be one of {_PRECISIONS}, "
-                         f"got {precision!r}")
-    if n_steps < 1:
-        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-    fs = FusedStep(p, marker_per_cell * p.npoints, dt)
-    state = pic.initial_state(p, marker_per_cell, generator, state)
-    qn = pic.quasi_neutrality_coef(p, dtype=_F32)
-    arrs = state_to_arrs(state)
-    field = tuple(f.to(_F32).contiguous() for f in (state.field.real,
-                                                     state.field.imag))
+    with span("pic.setup"):
+        if p.dtype != _F32:
+            raise ValueError("fused PIC is f32-only (CUDA kernels)")
+        if launch not in ("auto", "single", "stages"):
+            raise ValueError(f"launch must be auto|single|stages, "
+                             f"got {launch}")
+        if precision not in _PRECISIONS:
+            raise ValueError(f"precision must be one of {_PRECISIONS}, "
+                             f"got {precision!r}")
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        fs = FusedStep(p, marker_per_cell * p.npoints, dt)
+        state = pic.initial_state(p, marker_per_cell, generator, state)
+        qn = pic.quasi_neutrality_coef(p, dtype=_F32)
+        arrs = state_to_arrs(state)
+        field = tuple(f.to(_F32).contiguous() for f in (state.field.real,
+                                                         state.field.imag))
 
-    path = launch
-    if launch != "stages":
-        ok, info = grid_sync_selfcheck(p.device, fs.nf, fs.dc)
-        if ok:
-            path = "single"
-        elif launch == "single":
-            raise RuntimeError(f"launch='single' needs K3's grid-sync "
-                               f"self-check to pass: {info['reason']}")
+        path = launch
+        if launch != "stages":
+            ok, info = grid_sync_selfcheck(p.device, fs.nf, fs.dc)
+            if ok:
+                path = "single"
+            elif launch == "single":
+                raise RuntimeError(f"launch='single' needs K3's grid-sync "
+                                   f"self-check to pass: {info['reason']}")
+            else:
+                warnings.warn(f"fused PIC takes the per-stage kernels (K2): "
+                              f"{info['reason']}", RuntimeWarning,
+                              stacklevel=2)
+                path = "stages"
+        LAST_LAUNCH = path
+
+    with span("pic.k3"):
+        if path == "single":
+            eta, wre, wim, fr, fi, stats = mega(fs.dc, fs.params, *field, qn,
+                                                arrs, n_steps)
+            arrs = dict(arrs, eta=eta, w_re=wre, w_im=wim)
+            field = (fr, fi)
         else:
-            warnings.warn(f"fused PIC takes the per-stage kernels (K2): "
-                          f"{info['reason']}", RuntimeWarning, stacklevel=2)
-            path = "stages"
-    LAST_LAUNCH = path
-
-    if path == "single":
-        eta, wre, wim, fr, fi, stats = mega(fs.dc, fs.params, *field, qn,
-                                            arrs, n_steps)
-        arrs = dict(arrs, eta=eta, w_re=wre, w_im=wim)
-        return stats, arrs_to_state(p, arrs, (fr, fi)), None
-    stats = []
-    for k in range(n_steps):
-        arrs, field = fs.step(arrs, field, qn, first=(k == 0))
-        stats.append(plane_stats(*field))
-    return torch.stack(stats), arrs_to_state(p, arrs, field), None
+            stats = []
+            for k in range(n_steps):
+                arrs, field = fs.step(arrs, field, qn, first=(k == 0))
+                stats.append(plane_stats(*field))
+            stats = torch.stack(stats)
+    with span("pic.state"):
+        return stats, arrs_to_state(p, arrs, field), None
 
 
 # ---------------------------------------------------------------------------

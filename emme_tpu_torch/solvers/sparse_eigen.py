@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
-import time
 import warnings
 from dataclasses import dataclass, replace
 from functools import partial
@@ -43,9 +42,9 @@ import torch
 from ..grid import Grid
 from ..ops import banded, cuda_kappa, kernels
 from ..ops.singularity import SINGULAR_BAND_HALF_WIDTH, singularity_coeff_band
-from ..ops.sparse import BDIAOperator, bdia_matvec, pick_spmv
+from ..ops.sparse import BDIAOperator, bdia_matvec, pick_spmv, spmv_route
 from ..params import DYNAMIC_FIELDS
-from ..utils.timer import sync
+from ..utils.timer import host_read, span
 from . import eigen
 from .arnoldi import arnoldi_factorization, ritz_from_hessenberg
 
@@ -62,8 +61,6 @@ DEFAULT_BAND_DETA = 20.0
 # goes 2048 pairs at a time, as the dense path does.
 FUSED_CHUNK = 1 << 21
 PLAIN_CHUNK = 2048
-
-SPMV_RATE_REPS = 50   # dependent matvecs in the in-solve SpMV-rate chain
 
 
 def pick_block(n: int, preferred: int = 128) -> int:
@@ -83,7 +80,7 @@ def band_halfwidth(p, grid: Grid, block: int, band_deta: float) -> int:
     [phi_0, A_0, phi_1, A_1, ...]: an element pair (i, j) then occupies
     interleaved offsets |r - c| <= 2|i - j| + 1, which keeps the 2x2
     phi/A coupling inside one contiguous band."""
-    w_el = max(int(np.ceil(band_deta / float(grid.dx))),
+    w_el = max(int(np.ceil(band_deta / host_read(float, grid.dx))),
                SINGULAR_BAND_HALF_WIDTH)
     if p.electromagnetic:
         nb = 2 * grid.npoints // block
@@ -175,25 +172,27 @@ def _kernel_table(p, grid, omega, de_max: int, ms, quad, chunk, tiers,
     ``ms``; float32 chunks go through K1 when ``fused``.  ``i0`` and
     ``ncols`` serve the window assembly of the mesh-sharded solve: a shard
     computes only the columns of its own block rows and the de_max halo."""
-    nc = grid.npoints if ncols is None else ncols
-    cdtype = kernels.complex_dtype(grid.eta.dtype)
-    out = [torch.empty(de_max * nc, dtype=cdtype, device=grid.eta.device)
-           for _ in ms]
-    o = 0
-    for a, b, q in table_pair_chunks(grid, de_max, quad, tiers, chunk, i0,
-                                     ncols):
-        if fused:
-            vals = cuda_kappa.kappa_pairs_fused(p, a, b, omega, ms=ms, quad=q)
-        else:
-            vals, _ = kernels.kappa_f_tau(p, a, b, omega, ms=ms, quad=q)
-        if electron:
-            vals = (vals[0],
-                    vals[1] + kernels.kappa_f_tau_e(p, a, b, omega, 1),
-                    vals[2] + kernels.kappa_f_tau_e(p, a, b, omega, 2))
-        for t, v in zip(out, vals):
-            t[o:o + a.shape[0]] = v
-        o += a.shape[0]
-    return [t.reshape(de_max, nc) for t in out]
+    with span("assembly.pairs"):
+        nc = grid.npoints if ncols is None else ncols
+        cdtype = kernels.complex_dtype(grid.eta.dtype)
+        out = [torch.empty(de_max * nc, dtype=cdtype, device=grid.eta.device)
+               for _ in ms]
+        o = 0
+        for a, b, q in table_pair_chunks(grid, de_max, quad, tiers, chunk, i0,
+                                         ncols):
+            if fused:
+                vals = cuda_kappa.kappa_pairs_fused(p, a, b, omega, ms=ms,
+                                                    quad=q)
+            else:
+                vals, _ = kernels.kappa_f_tau(p, a, b, omega, ms=ms, quad=q)
+            if electron:
+                vals = (vals[0],
+                        vals[1] + kernels.kappa_f_tau_e(p, a, b, omega, 1),
+                        vals[2] + kernels.kappa_f_tau_e(p, a, b, omega, 2))
+            for t, v in zip(out, vals):
+                t[o:o + a.shape[0]] = v
+            o += a.shape[0]
+        return [t.reshape(de_max, nc) for t in out]
 
 
 def _flat_table(T, n):
@@ -251,24 +250,26 @@ def assemble_bdia(p, grid: Grid, coeff_band, omega, h: int, block: int,
     cw = coeff_band.shape[1] // 2
     ncol = coeff_band.shape[1]
     de_max = min((h + 1) * bs - 1, n - 1)
-    T = _flat_table(_kernel_table(p, grid, omega, de_max, (0,), quad, chunk,
-                                  tiers, fused=fused)[0], n)
-    coeff_flat = coeff_band.reshape(-1)
-    diag_phi = (1.0 + 1.0 / p.tau).to(grid.eta.dtype)
-    diag_val = torch.complex(diag_phi, torch.zeros_like(diag_phi))
+    T = _kernel_table(p, grid, omega, de_max, (0,), quad, chunk, tiers,
+                      fused=fused)[0]
+    with span("assembly.place"):
+        T = _flat_table(T, n)
+        coeff_flat = coeff_band.reshape(-1)
+        diag_phi = (1.0 + 1.0 / p.tau).to(grid.eta.dtype)
+        diag_val = torch.complex(diag_phi, torch.zeros_like(diag_phi))
 
-    pos_blocks = []
-    for d in range(h + 1):
-        i_idx, j_idx = _block_index(nb - d, bs, d, dev)
-        adiff = (j_idx - i_idx).abs()
-        lo = torch.minimum(i_idx, j_idx)
-        cvals = coeff_flat[lo * ncol + adiff.clamp(max=cw) + cw]
-        v = -T[adiff * n + lo] * cvals * grid.dx
-        if d == 0:
-            v = torch.where(i_idx == j_idx, diag_val, v)
-        pos_blocks.append(_pad_rows(v, d))
-    return BDIAOperator(data=_mirror(pos_blocks, nb),
-                        offsets=tuple(range(-h, h + 1)), n=n, block=bs)
+        pos_blocks = []
+        for d in range(h + 1):
+            i_idx, j_idx = _block_index(nb - d, bs, d, dev)
+            adiff = (j_idx - i_idx).abs()
+            lo = torch.minimum(i_idx, j_idx)
+            cvals = coeff_flat[lo * ncol + adiff.clamp(max=cw) + cw]
+            v = -T[adiff * n + lo] * cvals * grid.dx
+            if d == 0:
+                v = torch.where(i_idx == j_idx, diag_val, v)
+            pos_blocks.append(_pad_rows(v, d))
+        return BDIAOperator(data=_mirror(pos_blocks, nb),
+                            offsets=tuple(range(-h, h + 1)), n=n, block=bs)
 
 
 def _assemble_bdia_em(p, grid: Grid, coeff_band, omega, h: int, block: int,
@@ -299,37 +300,39 @@ def _assemble_bdia_em(p, grid: Grid, coeff_band, omega, h: int, block: int,
     cw = coeff_band.shape[1] // 2
     ncol = coeff_band.shape[1]
     de_max = em_de_max(n, h, bs)
-    T0, T1, T2 = (_flat_table(t, n) for t in _kernel_table(
-        p, grid, omega, de_max, (0, 1, 2), quad, chunk, tiers,
-        electron=True, fused=fused))
-    coeff_flat = coeff_band.reshape(-1)
-    diag_phi = (1.0 + 1.0 / p.tau).to(rdtype)
-    diag_A = ((2.0 * p.tau) / p.beta_e * p.bi(grid.eta)).to(rdtype)
+    tables = _kernel_table(p, grid, omega, de_max, (0, 1, 2), quad, chunk,
+                           tiers, electron=True, fused=fused)
+    with span("assembly.place"):
+        T0, T1, T2 = (_flat_table(t, n) for t in tables)
+        coeff_flat = coeff_band.reshape(-1)
+        diag_phi = (1.0 + 1.0 / p.tau).to(rdtype)
+        diag_A = ((2.0 * p.tau) / p.beta_e * p.bi(grid.eta)).to(rdtype)
 
-    pos_blocks = []
-    for d in range(h + 1):
-        r_idx, c_idx = _block_index(nb - d, bs, d, dev)
-        ii = r_idx // 2
-        jj = c_idx // 2
-        de = jj - ii
-        adiff = de.abs()
-        lo = torch.minimum(ii, jj)
-        pos = adiff * n + lo
-        sgn = torch.sign(de).to(rdtype)
-        even_r = r_idx % 2 == 0
-        usign = torch.where(even_r, sgn, -sgn)
-        cvals = coeff_flat[lo * ncol + adiff.clamp(max=cw) + cw]
-        phiphi = even_r & (c_idx % 2 == 0)
-        AA = ~even_r & (c_idx % 2 == 1)
-        v = torch.where(phiphi, -T0[pos] * cvals,
-                        torch.where(AA, T2[pos], usign * T1[pos])) * grid.dx
-        if d == 0:
-            dvals = torch.where(even_r, diag_phi, diag_A[ii])
-            v = torch.where(r_idx == c_idx,
-                            torch.complex(dvals, torch.zeros_like(dvals)), v)
-        pos_blocks.append(_pad_rows(v, d))
-    return BDIAOperator(data=_mirror(pos_blocks, nb),
-                        offsets=tuple(range(-h, h + 1)), n=dim, block=bs)
+        pos_blocks = []
+        for d in range(h + 1):
+            r_idx, c_idx = _block_index(nb - d, bs, d, dev)
+            ii = r_idx // 2
+            jj = c_idx // 2
+            de = jj - ii
+            adiff = de.abs()
+            lo = torch.minimum(ii, jj)
+            pos = adiff * n + lo
+            sgn = torch.sign(de).to(rdtype)
+            even_r = r_idx % 2 == 0
+            usign = torch.where(even_r, sgn, -sgn)
+            cvals = coeff_flat[lo * ncol + adiff.clamp(max=cw) + cw]
+            phiphi = even_r & (c_idx % 2 == 0)
+            AA = ~even_r & (c_idx % 2 == 1)
+            v = torch.where(phiphi, -T0[pos] * cvals,
+                            torch.where(AA, T2[pos], usign * T1[pos]))
+            v = v * grid.dx
+            if d == 0:
+                dvals = torch.where(even_r, diag_phi, diag_A[ii])
+                dvals = torch.complex(dvals, torch.zeros_like(dvals))
+                v = torch.where(r_idx == c_idx, dvals, v)
+            pos_blocks.append(_pad_rows(v, d))
+        return BDIAOperator(data=_mirror(pos_blocks, nb),
+                            offsets=tuple(range(-h, h + 1)), n=dim, block=bs)
 
 
 def assemble_bdia_window(p, grid: Grid, coeff_band, omega, h: int,
@@ -362,45 +365,47 @@ def assemble_bdia_window(p, grid: Grid, coeff_band, omega, h: int,
     i0 = el0 - de_max
     ncols = nel + de_max
     ms = (0, 1, 2) if em else (0,)
-    T = [_flat_table(t, ncols) for t in _kernel_table(
-        p, grid, omega, de_max, ms, quad, chunk, tiers, electron=em,
-        fused=fused, i0=i0, ncols=ncols)]
-    coeff_flat = coeff_band.reshape(-1)
-    ncol = coeff_band.shape[1]
-    cw = ncol // 2
-    diag_phi = (1.0 + 1.0 / p.tau).to(rdtype)
-    if em:
-        diag_A = ((2.0 * p.tau) / p.beta_e * p.bi(grid.eta)).to(rdtype)
+    tables = _kernel_table(p, grid, omega, de_max, ms, quad, chunk, tiers,
+                           electron=em, fused=fused, i0=i0, ncols=ncols)
+    with span("assembly.place"):
+        T = [_flat_table(t, ncols) for t in tables]
+        coeff_flat = coeff_band.reshape(-1)
+        ncol = coeff_band.shape[1]
+        cw = ncol // 2
+        diag_phi = (1.0 + 1.0 / p.tau).to(rdtype)
+        if em:
+            diag_A = ((2.0 * p.tau) / p.beta_e * p.bi(grid.eta)).to(rdtype)
 
-    blocks = []
-    for d in range(-h, h + 1):
-        r_idx, c_idx = _block_index(nbl, bs, d, dev)
-        r_idx, c_idx = r_idx + row0 * bs, c_idx + row0 * bs
-        ii, jj = (r_idx // 2, c_idx // 2) if em else (r_idx, c_idx)
-        de = jj - ii
-        adiff = de.abs()
-        lo = torch.minimum(ii, jj).clamp(max(i0, 0), i0 + ncols - 1)
-        valid = (c_idx >= 0) & (c_idx < dim)
-        pos = adiff.clamp(max=de_max) * ncols + (lo - i0)
-        cvals = coeff_flat[lo * ncol + adiff.clamp(max=cw) + cw]
-        if not em:
-            v = -T[0][pos] * cvals
-        else:
-            sgn = torch.sign(de).to(rdtype)
-            even_r = r_idx % 2 == 0
-            usign = torch.where(even_r, sgn, -sgn)
-            phiphi = even_r & (c_idx % 2 == 0)
-            AA = ~even_r & (c_idx % 2 == 1)
-            v = torch.where(phiphi, -T[0][pos] * cvals,
-                            torch.where(AA, T[2][pos], usign * T[1][pos]))
-        v = torch.where(valid, v * grid.dx, torch.zeros_like(v))
-        if d == 0:
-            dvals = (torch.where(even_r, diag_phi, diag_A[ii.clamp(0, n - 1)])
-                     if em else diag_phi.expand(r_idx.shape))
-            v = torch.where(r_idx == c_idx,
-                            torch.complex(dvals, torch.zeros_like(dvals)), v)
-        blocks.append(v)
-    return torch.stack(blocks)
+        blocks = []
+        for d in range(-h, h + 1):
+            r_idx, c_idx = _block_index(nbl, bs, d, dev)
+            r_idx, c_idx = r_idx + row0 * bs, c_idx + row0 * bs
+            ii, jj = (r_idx // 2, c_idx // 2) if em else (r_idx, c_idx)
+            de = jj - ii
+            adiff = de.abs()
+            lo = torch.minimum(ii, jj).clamp(max(i0, 0), i0 + ncols - 1)
+            valid = (c_idx >= 0) & (c_idx < dim)
+            pos = adiff.clamp(max=de_max) * ncols + (lo - i0)
+            cvals = coeff_flat[lo * ncol + adiff.clamp(max=cw) + cw]
+            if not em:
+                v = -T[0][pos] * cvals
+            else:
+                sgn = torch.sign(de).to(rdtype)
+                even_r = r_idx % 2 == 0
+                usign = torch.where(even_r, sgn, -sgn)
+                phiphi = even_r & (c_idx % 2 == 0)
+                AA = ~even_r & (c_idx % 2 == 1)
+                v = torch.where(phiphi, -T[0][pos] * cvals,
+                                torch.where(AA, T[2][pos], usign * T[1][pos]))
+            v = torch.where(valid, v * grid.dx, torch.zeros_like(v))
+            if d == 0:
+                dvals = (torch.where(even_r, diag_phi,
+                                     diag_A[ii.clamp(0, n - 1)])
+                         if em else diag_phi.expand(r_idx.shape))
+                dvals = torch.complex(dvals, torch.zeros_like(dvals))
+                v = torch.where(r_idx == c_idx, dvals, v)
+            blocks.append(v)
+        return torch.stack(blocks)
 
 
 def deinterleave(vec):
@@ -445,9 +450,10 @@ def trace_newton_step(p, grid, coeff_band, state: SparseEigenState,
     """One Newton-trace-secant step on the banded operator
     (solver.h:113-160): d_omega = -1 / tr(M^{-1} dM), with the banded trace
     computed exactly by selected inversion."""
-    lu = banded.banded_lu(state.M)
-    Zu = banded.banded_selected_inverse(lu)
-    d_omega = -1.0 / banded.banded_trace_product(Zu, state.dM)
+    with span("linalg.step"):
+        lu = banded.banded_lu(state.M)
+        Zu = banded.banded_selected_inverse(lu)
+        d_omega = -1.0 / banded.banded_trace_product(Zu, state.dM)
     omega = state.omega + d_omega
     M_new = assemble_bdia(p, grid, coeff_band, omega, h, block, quad, chunk,
                           tiers, fused)
@@ -460,11 +466,12 @@ def bordered_newton_step(p, grid, coeff_band, state: SparseEigenState,
                          tiers=None, fused: bool = False):
     """One banded bordered-Newton (QR-secant analogue) step:
     d_omega = -(v^T M v) / (v^T dM v) with v by banded inverse iteration."""
-    lu = banded.banded_lu(state.M)
-    v = _null_vector(lu, state.M.n, state.M.data.dtype)
-    num = _cdot_bilinear(v, bdia_matvec(state.M, v))
-    den = _cdot_bilinear(v, bdia_matvec(state.dM, v))
-    d_omega = -num / den
+    with span("linalg.step"):
+        lu = banded.banded_lu(state.M)
+        v = _null_vector(lu, state.M.n, state.M.data.dtype)
+        num = _cdot_bilinear(v, bdia_matvec(state.M, v))
+        den = _cdot_bilinear(v, bdia_matvec(state.dM, v))
+        d_omega = -num / den
     omega = state.omega + d_omega
     M_new = assemble_bdia(p, grid, coeff_band, omega, h, block, quad, chunk,
                           tiers, fused)
@@ -533,7 +540,8 @@ def host64_polish_banded(p, grid, coeff_band, state: SparseEigenState,
                          dtype=torch.complex128, device=dev)
 
     def null_vec(A):
-        return _inverse_iteration(banded.banded_lu(A), v0, 3)
+        with span("linalg.vector"):
+            return _inverse_iteration(banded.banded_lu(A), v0, 3)
 
     if omega is None:
         omega = complex(eigen._item(state.omega))
@@ -626,27 +634,6 @@ def solve_shifts(p, sigmas, tol: float | None = None, m_krylov: int = 16,
         return list(ex.map(one, items))
 
 
-def spmv_rate(op: BDIAOperator, spmv: str | None = None,
-              reps: int = SPMV_RATE_REPS):
-    """Live-operator SpMV rate in stored entries per second: one warm-up
-    matvec, then ``reps`` dependent matvecs (x renormalized each time),
-    timed on the host clock and ended by a device synchronize.  Returns
-    (rate, route)."""
-    mv, route = pick_spmv(op, spmv)
-    rdtype = torch.float64 if op.data.dtype == torch.complex128 \
-        else torch.float32
-    ones = torch.ones(op.n, dtype=rdtype, device=op.data.device)
-    x = torch.complex(ones, torch.zeros_like(ones))
-    mv(x)
-    sync(x)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        y = mv(x)
-        x = y / (torch.linalg.vector_norm(y) + 1e-30)
-    sync(x)
-    return op.nnz * reps / (time.perf_counter() - t0), route
-
-
 def solve(p, omega_init, tol: float | None = None, quad=None,
           chunk: int | None = None, dtype=None,
           band_deta: float | None = None, block: int | None = None,
@@ -658,15 +645,14 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
     state); ``omega`` is a Python complex, the eigenvector (in the
     reference [phi; A] layout for electromagnetic cases) and ``state``
     stay on the parameters' device.  Fills ``stats`` with nnz, block, h,
-    band_fraction, spmv_route, spmv_nnz_per_s and, with the Arnoldi stage,
-    arnoldi_s and arnoldi_omega.
+    band_fraction, spmv_route and, with the Arnoldi stage, arnoldi_omega.
 
     ``method``: "TraceSecant" (banded Newton trace via selected inversion,
     the reference's iteration) or "QRSecant" (bordered secant on the
     smallest singular pair).  ``m_krylov > 0`` runs the shift-invert
     Arnoldi stage first and re-seeds the Newton iteration from its Ritz
     value.  ``spmv``: "bdia" | "bsr" | None (auto, ``pick_spmv``) -- the
-    route of the Arnoldi matvecs and of the SpMV-rate stat.  ``loop``:
+    route of the Arnoldi matvecs.  ``loop``:
     "host" (default: the done flag is read after every step) or "device"
     (no host wait inside the loop, the flag read one step late; it queues
     one masked step, a whole banded assembly, past convergence); both walk
@@ -702,7 +688,7 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
         tiered = dtype == torch.float32
     tiers = None
     if tiered:
-        dxf = 2.0 * float(p.length) / (p.npoints - 1)
+        dxf = 2.0 * host_read(float, p.length) / (p.npoints - 1)
         tiers = kernels.tier_thresholds_ij(dxf, p.npoints)
     if fused is None:
         fused = dtype == torch.float32
@@ -721,18 +707,14 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
 
     state = init(complex(omega_init))
     if m_krylov:
-        sync(state.omega)
-        t0 = time.perf_counter()
-        _V, H = arnoldi_estimate(state, m_krylov, spmv)
-        sync(H)
-        t_arnoldi = time.perf_counter() - t0
-        omegas, _ = ritz_from_hessenberg(
-            H, complex(eigen._item(state.omega)), m_krylov)
+        with span("linalg.arnoldi"):
+            _V, H = arnoldi_estimate(state, m_krylov, spmv)
+            omegas, _ = ritz_from_hessenberg(
+                H, complex(eigen._item(state.omega)), m_krylov)
         est = complex(omegas[0])
         if np.isfinite(est.real) and np.isfinite(est.imag):
             state = init(est)   # re-seed the Newton polish from the estimate
         if stats is not None:
-            stats["arnoldi_s"] = t_arnoldi
             stats["arnoldi_omega"] = est
 
     eigen.LAST_SOLVE.clear()
@@ -747,9 +729,7 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
         stats["block"] = block
         stats["h"] = h
         stats["band_fraction"] = state.M.nnz / (state.M.n ** 2)
-        rate, route = spmv_rate(state.M, spmv)
-        stats["spmv_route"] = route
-        stats["spmv_nnz_per_s"] = rate
+        stats["spmv_route"] = spmv_route(state.M, spmv)
 
     if host64:
         omega, v, extra = host64_polish_banded(
@@ -759,8 +739,9 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
             v = deinterleave(v)
         return omega, v, n_steps + extra, state
 
-    v = _null_vector(banded.banded_lu(state.M), state.M.n,
-                     state.M.data.dtype, iters=3)
+    with span("linalg.vector"):
+        v = _null_vector(banded.banded_lu(state.M), state.M.n,
+                         state.M.data.dtype, iters=3)
     if p.electromagnetic:
         v = deinterleave(v)
     return omega, v, n_steps, state

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from .timer import host_read
+
 _NAN_CHECKS = False
 
 
@@ -46,7 +48,7 @@ def check_finite(name: str, value) -> None:
     if hasattr(value, "offsets"):   # a block operator: its stored blocks
         value = value.data
     t = torch.as_tensor(value)
-    if not bool(torch.isfinite(t).all()):
+    if not host_read(bool, torch.isfinite(t).all()):
         bad = int((~torch.isfinite(t)).sum())
         raise FloatingPointError(
             f"debug: {name} holds {bad} non-finite value(s) of {t.numel()}")

@@ -190,7 +190,8 @@ def test_slice_matches_jax(tok32_slice):
     """tok32, block 8, band_deta 20, Arnoldi (m 8) on the BSR route: the
     same step count as emme_tpu, omega within 1e-10 relative, the Arnoldi
     estimate within 1e-8, eigenvector correlation > 1 - 1e-10, the same
-    operator stats."""
+    operator stats; the port times nothing in the solve (no SpMV rate, no
+    Arnoldi seconds: a trace's spans measure those)."""
     (om, vec, steps, state), st, (omj, vecj, stepsj, _), sj = tok32_slice
     assert steps == stepsj
     assert abs(om - omj) / abs(omj) < 1e-10
@@ -199,8 +200,8 @@ def test_slice_matches_jax(tok32_slice):
     assert _corr(vec.numpy(), vecj) > 1 - 1e-10
     for key in ("nnz", "block", "h", "band_fraction", "spmv_route"):
         assert st[key] == sj[key], key
-    assert st["spmv_route"] == "bsr" and st["spmv_nnz_per_s"] > 0
-    assert st["arnoldi_s"] > 0
+    assert st["spmv_route"] == "bsr"
+    assert "spmv_nnz_per_s" not in st and "arnoldi_s" not in st
     assert state.M.nnz < 32 * 32
 
 

@@ -1,0 +1,232 @@
+"""The program's spans (``emme_tpu_torch.utils.timer``): on each path they
+open under a torch profiler, their names, and their cost with no profiler.
+
+Each path runs on CPU tensors under ``torch.profiler.profile`` (host
+activity only) and is held to three rules: every span the path reaches
+opens, every span that opens is in ``SPANS``, and no span opens inside a
+span of its own name (the trace's reading of idle gaps takes the innermost
+open span and relies on that).
+"""
+
+import collections
+import json
+import pathlib
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import emme_tpu_torch as et
+from emme_tpu_torch import driver
+from emme_tpu_torch.grid import Grid
+from emme_tpu_torch.ops.singularity import singularity_coeff_matrix
+from emme_tpu_torch.solvers import cuda_pic, eigen
+from emme_tpu_torch.utils.timer import SPANS, Timer, host_read, section, span
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+GUESS = -0.8 + 0.25j
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread while this module runs: the suite's workers share
+    the host's cores, and torch's pools in each of them starve the others
+    (this module took minutes instead of seconds beside another worker)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _traced(fn):
+    """Run ``fn()`` under a host profiler: (its result, [(name, start,
+    end)] of every program span, in start order)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    spans = sorted((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.name().startswith("layer."))
+    return out, sorted(spans, key=lambda s: s[1])
+
+
+def _nested_in_own_name(spans):
+    """Spans that start inside an earlier span of the same name."""
+    last_end = {}
+    bad = []
+    for name, t0, t1 in spans:
+        if name in last_end and t0 < last_end[name]:
+            bad.append(name)
+        last_end[name] = max(last_end.get(name, t0), t1)
+    return bad
+
+
+def _input(name, **kw):
+    with open(ROOT / "tests" / "goldens" / "inputs" / name) as f:
+        return dict(json.load(f), **kw)
+
+
+def _dense():
+    return driver.solve_once_eigen(_input("tokamak.json", npoints=64), GUESS,
+                                   dtype=torch.float32, device="cpu")
+
+
+def _stellarator():
+    cfg = _input("stellarator.json", npoints=16)
+    return driver.solve_once_eigen(cfg, complex(*cfg["initial_guess"]),
+                                   dtype=torch.float32, device="cpu")
+
+
+def _banded():
+    cfg = _input("tokamak.json", npoints=64, eigen_backend="sparse",
+                 band_deta=10.0, band_block=16, m_krylov=4, spmv_method="bsr",
+                 iteration_precision=1e-5)
+    return driver.solve_once_eigen(cfg, GUESS, dtype=torch.float32,
+                                   device="cpu")
+
+
+def _pic(launch="auto"):
+    p = et.from_config(_input("tokamak.json", npoints=128),
+                       dtype=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    return cuda_pic.run(p, 8, 2, 0.25, generator=gen, launch=launch)
+
+
+EIGEN = {"layer.driver.params", "layer.driver.guard", "layer.assembly.pairs",
+         "layer.assembly.place", "layer.linalg.step", "layer.linalg.vector",
+         "layer.host_read"}
+PATHS = {
+    "dense": (_dense, EIGEN),
+    "stellarator": (_stellarator, EIGEN),
+    "banded": (_banded, EIGEN | {"layer.linalg.arnoldi"}),
+    "pic": (_pic, {"layer.pic.setup", "layer.pic.k3", "layer.pic.state"}),
+}
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_path_opens_its_spans(path):
+    fn, reached = PATHS[path]
+    _, spans = _traced(fn)
+    opened = {name for name, _, _ in spans}
+    assert reached <= opened, sorted(reached - opened)
+    assert opened <= set(SPANS), sorted(opened - set(SPANS))
+    assert not _nested_in_own_name(spans)
+
+
+def test_pic_stages_path_spans_its_step_loop():
+    """On K2's path ``layer.pic.k3`` covers the step loop, between the
+    set-up and the state."""
+    _, spans = _traced(lambda: _pic(launch="stages"))
+    assert cuda_pic.LAST_LAUNCH == "stages"
+    assert [name for name, _, _ in spans] == [
+        "layer.pic.setup", "layer.pic.k3", "layer.pic.state"]
+    assert spans[0][2] <= spans[1][1] and spans[1][2] <= spans[2][1]
+
+
+@pytest.mark.parametrize("method", ["TraceSecant", "QRSecant",
+                                    "BorderedSecant"])
+def test_every_newton_step_opens_its_linear_algebra(method):
+    """One ``layer.linalg.step`` a Newton step, before the step's assembly,
+    whichever update the step takes; the host loop reads the done flag
+    once a step under ``layer.host_read``."""
+    p = et.from_config(_input("tokamak.json", npoints=32),
+                       dtype=torch.float32, device="cpu")
+    (_, _, steps, _), spans = _traced(
+        lambda: eigen.solve(p, GUESS, tol=1e-5, method=method))
+    names = collections.Counter(name for name, _, _ in spans)
+    queued = eigen.LAST_SOLVE["queued_steps"]
+    assert names["layer.linalg.step"] == queued >= steps
+    assert names["layer.assembly.pairs"] == names["layer.assembly.place"] \
+        == 2 + queued
+    assert names["layer.linalg.vector"] == 1
+    assert not _nested_in_own_name(spans)
+
+
+@pytest.mark.parametrize("loop", ["host", "device"])
+def test_every_host_read_is_a_span(loop):
+    """``layer.host_read`` spans a solve's reads: each counted blocking read
+    (``eigen.HOST_READS``) and the read of the grid length that sizes the
+    tiers.  On CPU tensors the device loop's flag polls wait for nothing
+    (no event to synchronize), so they are counted and open no span."""
+    p = et.from_config(_input("tokamak.json", npoints=32),
+                       dtype=torch.float32, device="cpu")
+    eigen.HOST_READS.update(blocking=0, flag_polls=0)
+    _, spans = _traced(lambda: eigen.solve(p, GUESS, tol=1e-5, loop=loop))
+    reads = sum(1 for name, _, _ in spans if name == "layer.host_read")
+    assert reads == eigen.HOST_READS["blocking"] + 1
+    queued = eigen.LAST_SOLVE["queued_steps"]
+    assert eigen.HOST_READS == (
+        {"blocking": queued + 1, "flag_polls": 0} if loop == "host"
+        else {"blocking": 1, "flag_polls": queued - 1})
+
+
+def _harness_span_names():
+    """The span names the benchmark's harness wraps around entry points
+    (the ``spans()`` tables of ``portbench/entries/*.py``), for every cell
+    and with a card's table, which adds K1."""
+    from portbench import harness
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    names = set()
+    for w in bench["workloads"]:
+        entry = harness.Cell(bench, w["name"]).entry(1, torch.device("cuda"))
+        names |= {"layer." + s for _m, _a, s, _k in entry.spans()}
+    return names
+
+
+def test_span_names_keep_clear_of_the_harness():
+    harness = _harness_span_names()
+    assert {"layer.solver", "layer.assembly", "layer.k1", "layer.pic_state",
+            "layer.pic_run", "layer.pic_fit"} <= harness
+    assert len(set(SPANS)) == len(SPANS)
+    assert all(name.startswith("layer.") for name in SPANS)
+    assert not set(SPANS) & harness
+
+
+def test_no_profiler_no_record_function(monkeypatch):
+    """With no profiler recording, a span enters no ``record_function`` and
+    leaves the Timer table as it was; a host read still returns its value."""
+    def refuse(*_a, **_k):
+        raise AssertionError("record_function entered with no profiler")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    before = (list(Timer.get_timer().entries), Timer.get_timer().timings())
+    with span("assembly.pairs"), span("assembly.pairs"):
+        pass
+    assert host_read(torch.tensor(2.5).item) == 2.5
+    p = et.from_config(_input("tokamak.json", npoints=16),
+                       dtype=torch.float32, device="cpu")
+    grid = Grid.create(p.length, 16, dtype=torch.float32, device="cpu")
+    coeff = singularity_coeff_matrix(16, dtype=torch.float32, device="cpu")
+    M = eigen.assemble_matrix(p, grid, coeff,
+                              torch.tensor(GUESS, dtype=torch.complex64),
+                              fused=True)
+    assert M.shape == (16, 16)
+    assert (list(Timer.get_timer().entries),
+            Timer.get_timer().timings()) == before
+
+
+def test_span_under_a_profiler_names_its_layer():
+    _, spans = _traced(lambda: host_read(torch.ones(3).sum().item))
+    assert [name for name, _, _ in spans] == ["layer.host_read"]
+    with span("driver.guard"):
+        pass   # no profiler: nothing recorded, nothing raised
+
+
+def test_section_keeps_the_timer_table_and_pushes_no_nvtx(monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("NVTX range pushed")
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", refuse)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_pop", refuse)
+    def output():
+        with section("Output"):
+            torch.ones(4).sum()
+
+    t = Timer.get_timer()
+    t.reset()
+    try:
+        with section("Iteration"):
+            torch.ones(4).sum()
+        _, spans = _traced(output)
+        assert t.entries == ["Iteration", "Output"]
+        assert all(v > 0 for v in t.timings().values())
+        assert spans == []   # a section opens no span of its own
+    finally:
+        t.reset()
