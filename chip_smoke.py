@@ -21,6 +21,11 @@ check exits non-zero:
    accurate side) is held to the plain math in float64 on the same inputs,
    as phase 13 is: K1 within the bar of it, or no further from it than the
    plain float32 version; its distance to the plain version is printed.
+3b. assembly_routes: one tok1024 and one stel1024 dense assembly on each
+   route, the kernels (P, K1 a tier, Q, ops/cuda_assembly.py) and the
+   torch around K1: CUDA-event and host-clock ms, the kernels each
+   launches (torch.profiler), and the two operators' largest gap, held to
+   phase 3's bar (5e-7 / 5e-6 max(scale, 1)).
 4. slice: the main path, from_config(tokamak, npoints=1024, float32, cuda)
    -> eigen.solve(p, -0.8+0.25j, tol=1e-5, chunk=16384) at its defaults on
    a card (the device loop, the null vector by inverse iteration), twice;
@@ -2296,6 +2301,72 @@ def driver_pic_sorted(torch, card, tmp, pic_cfg, run_cli, single, pic,
           "the 'matmul' and 'bf16' runs are finite")
 
 
+def assembly_routes_phase(torch, card):
+    """Phase 3b (assembly_routes): one tok1024 and one stel1024 dense
+    assembly on each route -- the kernels (P, K1 a tier, Q, from the
+    solve's plan, ``ops/cuda_assembly.py``) and the torch around K1
+    (``eigen._assemble_torch``) -- by CUDA events over back-to-back calls
+    and by the host clock, the kernels each launches (``torch.profiler``),
+    and the two operators' largest gap against K1's bar against its plain
+    version."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from emme_tpu_torch import from_config
+    from emme_tpu_torch.grid import Grid
+    from emme_tpu_torch.ops import kernels
+    from emme_tpu_torch.ops.singularity import singularity_coeff_matrix
+    from emme_tpu_torch.solvers import eigen
+
+    f32 = torch.float32
+    dev = torch.device("cuda")
+
+    def launches(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if not str(e.device_type()).endswith("CPU")
+                 and not e.name().startswith(("Memcpy", "Memset"))
+                 and e.duration_ns() > 0]
+        return len(names), sum("kappa_pairs_kernel" in n for n in names)
+
+    for case, name, guess, bar in (("tok", "tokamak", GUESS, ES_BAR),
+                                   ("stel", "stellarator", STEL_GUESS,
+                                    EM_BAR)):
+        p = from_config(load_cfg(name, N_TOK), dtype=f32)
+        grid = Grid.create(p.length, p.npoints, dtype=f32)
+        coeff = singularity_coeff_matrix(p.npoints, dtype=f32)
+        tiers = kernels.tier_thresholds_ij(
+            2.0 * float(p.length) / (p.npoints - 1), p.npoints)
+        plan = eigen.assembly_plan(p, grid, None, tiers)
+        omega = torch.tensor(guess, dtype=torch.complex64, device=dev)
+        routes = {
+            "kernels": lambda: eigen.assemble_matrix(
+                p, grid, coeff, omega, None, 16384, tiers, True, plan),
+            "torch": lambda: eigen._assemble_torch(
+                p, grid, coeff, omega, None, 16384, tiers, True)}
+        row, Ms = {}, {}
+        for route, fn in routes.items():
+            n_launch, n_k1 = launches(fn)
+            wall_ms, Ms[route] = timed(fn, torch)
+            row[route] = {"event_ms": event_ms(fn, torch, reps=10),
+                          "wall_ms": wall_ms, "launches": n_launch,
+                          "k1_launches": n_k1}
+        scale = float(Ms["torch"].abs().max())
+        gap = float((Ms["kernels"] - Ms["torch"]).abs().max())
+        check(gap <= bar * max(scale, 1.0),
+              f"{case}{N_TOK} kernels vs torch route {gap:.3e} > {bar} "
+              f"max({scale:.3e}, 1)")
+        check(row["kernels"]["k1_launches"] == row["torch"]["k1_launches"]
+              == len(plan.tiers), "K1 once a tier on both routes")
+        emit("assembly_routes", case=f"{case}{N_TOK}", tiers=len(plan.tiers),
+             moments=list(plan.ms), max_abs_gap=gap, scale=scale, **row,
+             card=card)
+
+
 def dense_arnoldi_phase(torch, card):
     """Phase 24 (dense_arnoldi): the shift-invert Arnoldi estimate plus
     Newton polish against pure Newton (TraceSecant) at tok1024 float32, and
@@ -2804,6 +2875,9 @@ def main():
                    (0, 1, 2), None, EM_BAR, torch, cuda_kappa)
     emit("kernel_vs_plain", case=f"stel{N_STEL}", tier=None, ms_moments=[0, 1, 2],
          **r_em)
+
+    # 3b. assembly_routes: the kernels around K1 against the torch route
+    assembly_routes_phase(torch, card)
 
     # 4. the slice: the dense float32 TraceSecant solve at n=1024
     def solve():

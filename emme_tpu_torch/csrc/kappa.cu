@@ -32,6 +32,8 @@
 
 #include <cstring>
 
+#include "assembly.h"   // kernels P and Q of the dense assembly, around K1
+
 namespace {
 
 constexpr int kMaxOrder = 31;
@@ -332,6 +334,43 @@ int kappa_pairs_launch(const float* mid, const float* halfw, const float* pair,
   kappa_pairs_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       mid, halfw, reinterpret_cast<const float4*>(pair), scal, out, npairs,
       n_panels, order, ms, tab);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel P (assembly.h) on `stream`: meta, assembly::kMetaFields int64 a
+// tier, in host memory; points (3, n), scalars (assembly::kNumScalars),
+// omega (complex64) and buf on the device.  Returns cudaGetLastError()
+// after the launch (0 on success).
+int assembly_inputs_launch(const long long* meta, int n_tiers, int n,
+                           const float* points, const float* scalars,
+                           const float* omega, float* buf, void* stream) {
+  assembly::Tiers tiers;
+  const long long work =
+      assembly::read_tiers(meta, nullptr, n_tiers, true, &tiers);
+  if (work < 0 || n < 2) return static_cast<int>(cudaErrorInvalidValue);
+  assembly::assembly_inputs_kernel<<<assembly::blocks_for(work),
+                                     assembly::kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      tiers, n, points, scalars, omega, buf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel Q (assembly.h) on `stream`: meta as for P, outs the tiers' K1
+// output addresses (host memory); coeff (n, n) float32 and M (dim, dim)
+// complex64, dim = n (em = 0) or 2 n (em = 1), on the device.
+int assembly_place_launch(const long long* meta, const long long* outs,
+                          int n_tiers, int n, int em, const float* points,
+                          const float* scalars, const float* omega,
+                          const float* coeff, void* M, void* stream) {
+  assembly::Tiers tiers;
+  long long work = assembly::read_tiers(meta, outs, n_tiers, false, &tiers);
+  if (work < 0 || n < 2 || (em != 0 && em != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  work = work > n ? work : n;
+  assembly::assembly_place_kernel<<<assembly::blocks_for(work),
+                                    assembly::kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      tiers, n, em, points, scalars, omega, coeff, static_cast<float2*>(M));
   return static_cast<int>(cudaGetLastError());
 }
 

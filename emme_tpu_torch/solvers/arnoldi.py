@@ -82,15 +82,24 @@ def ritz_from_hessenberg(H, sigma, m_krylov: int):
     return omegas, Y
 
 
+def _plan(p, grid, quad, fused):
+    """The card's assembly plan on the base mesh (``eigen.assembly_plan``),
+    or None where the kernels do not assemble."""
+    return eigen.assembly_plan(p, grid, quad) \
+        if eigen.kernel_route(p, grid, fused) else None
+
+
 def _secant_pair(p, grid, coeff, sigma, quad, chunk, d_sigma_frac):
     """M(sigma) and the secant M'(sigma) from M(sigma (1 + d_sigma_frac)),
     on the base panel mesh; K1 for float32, the torch integrand for
     float64."""
     fused = grid.eta.dtype == torch.float32
+    plan = _plan(p, grid, quad, fused)
     d_sigma = d_sigma_frac * sigma
-    M = eigen.assemble_matrix(p, grid, coeff, sigma, quad, chunk, None, fused)
+    M = eigen.assemble_matrix(p, grid, coeff, sigma, quad, chunk, None, fused,
+                              plan)
     M2 = eigen.assemble_matrix(p, grid, coeff, sigma + d_sigma, quad, chunk,
-                               None, fused)
+                               None, fused, plan)
     return M, (M2 - M) / d_sigma
 
 
@@ -156,12 +165,13 @@ def solve(p, sigma, m_krylov: int = 24, newton_polish: int = 3,
     if newton_polish <= 0:
         return omega_est, vec, 0
     fused = grid.eta.dtype == torch.float32
+    plan = _plan(p, grid, quad, fused)
     state = eigen.init_state(p, grid, coeff, _shift(omega_est, grid), quad,
-                             chunk, None, fused)
+                             chunk, None, fused, plan)
     steps = 0
     for _ in range(newton_polish):
         state = eigen.newton_trace_step(p, grid, coeff, state, quad, chunk,
-                                        None, fused)
+                                        None, fused, plan)
         steps += 1
         d_omega, omega, re, im = eigen._items(torch.stack([
             state.d_omega.abs(), state.omega.abs(), state.omega.real,

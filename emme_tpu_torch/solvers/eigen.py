@@ -6,7 +6,10 @@ Counterpart of the dense path of ``emme_tpu/solvers/eigen.py`` (reference
 * Matrix assembly: every upper-triangle pair's kernel integral at once, on
   |i - j|-tiered panel meshes; float32 pairs go through the CUDA kernel K1
   (``ops/cuda_kappa.py``), float64 pairs through the torch integrand
-  (``ops/kernels.py``).  M is built by complex index assignment.
+  (``ops/kernels.py``).  On the card in float32 two kernels around K1
+  build its inputs and write M (``ops/cuda_assembly.py``, from a plan made
+  once a solve); elsewhere torch does, and M is built by complex index
+  assignment.
 * Newton-secant iteration on det M(omega) = 0 via the trace update
   d_omega = -1 / tr(M^{-1} dM) (solver.h:113-160), with dM from the secant
   difference (solver.h:54-57); the reference's QR-secant update
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 
 from ..grid import Grid
-from ..ops import cuda_kappa, kernels, linalg
+from ..ops import cuda_assembly, cuda_kappa, kernels, linalg
 from ..ops.singularity import singularity_coeff_matrix
 from ..utils.timer import host_read, section, span, sync
 
@@ -106,8 +109,35 @@ def _tiered_pair_values(p, grid, omega, plan, ms, quad, chunk,
     return tuple(torch.cat(vs)[plan["perm"]] for vs in parts)
 
 
+# Dense assemblies (``assemble_matrix``) since the caller last set them to
+# 0, by route: "kernels", the card's float32 route through K1 (kernels P
+# and Q around it, ``ops/cuda_assembly.py``); "torch", every other.
+ASSEMBLY_ROUTE = {"kernels": 0, "torch": 0}
+
+
+def kernel_route(p, grid: Grid, fused: bool) -> bool:
+    """Whether an assembly takes the kernels: K1 (``fused``) on a CUDA grid,
+    the grid and the parameters float32."""
+    return bool(fused) and grid.eta.is_cuda \
+        and grid.eta.dtype == torch.float32 and p.dtype == torch.float32
+
+
+def assembly_plan(p, grid: Grid, quad=None, tiers=None):
+    """The kernels' plan of ``grid``'s assemblies (``cuda_assembly.Plan``):
+    the tiers' pairs and panel meshes as ``_tiered_pair_values`` takes them
+    (one tier of every pair on ``quad`` without ``tiers``), g(eta) and
+    bi(eta) at the grid's points and the parameters' scalars."""
+    plan = pair_plan(grid.npoints, tiers, str(grid.eta.device))
+    if tiers is None:
+        groups = [(plan["iu"], plan["ju"], None)]
+    else:
+        groups = [(iu, ju, kernels.scaled_quad(quad, grid.eta.dtype, spec))
+                  for iu, ju, spec in plan["groups"]]
+    return cuda_assembly.build_plan(p, grid, groups, quad)
+
+
 def assemble_matrix(p, grid: Grid, coeff, omega, quad=None, chunk: int = 2048,
-                    tiers=None, fused: bool = False):
+                    tiers=None, fused: bool = False, plan=None):
     """Assemble the dense complex-symmetric M(omega).
 
     Electrostatic (beta_e == 0): dim = npoints,
@@ -120,7 +150,24 @@ def assemble_matrix(p, grid: Grid, coeff, omega, quad=None, chunk: int = 2048,
 
     ``tiers``: optional |i - j| tier table (``kernels.tier_thresholds_ij``)
     -- coarser panel meshes for far pairs.
+
+    Where ``kernel_route`` holds, the kernels assemble (P, K1 a tier, Q),
+    from ``plan`` (``assembly_plan`` of the same quad and tiers), made here
+    when None; elsewhere ``_assemble_torch``.  Counted in ``ASSEMBLY_ROUTE``.
     """
+    if kernel_route(p, grid, fused):
+        ASSEMBLY_ROUTE["kernels"] += 1
+        if plan is None:
+            plan = assembly_plan(p, grid, quad, tiers)
+        return cuda_assembly.assemble(plan, coeff, omega)
+    ASSEMBLY_ROUTE["torch"] += 1
+    return _assemble_torch(p, grid, coeff, omega, quad, chunk, tiers, fused)
+
+
+def _assemble_torch(p, grid: Grid, coeff, omega, quad=None, chunk: int = 2048,
+                    tiers=None, fused: bool = False):
+    """``assemble_matrix`` by torch around K1 or the torch integrand: the
+    CPU's route, and the plain version the card's kernels are held to."""
     n = grid.npoints
     with span("assembly.pairs"):
         plan = pair_plan(n, tiers, str(grid.eta.device))
@@ -186,34 +233,36 @@ class EigenState:
 
 
 def init_state(p, grid, coeff, omega_init, quad=None, chunk: int = 2048,
-               tiers=None, fused: bool = False):
+               tiers=None, fused: bool = False, plan=None):
     """Reference ctor seeding (solver.h:396-415): assemble at 0.99*w0 and w0,
     secant derivative from the pair."""
     omega_old = 0.99 * omega_init
     d_omega = 0.01 * omega_init
     M_old = assemble_matrix(p, grid, coeff, omega_old, quad, chunk, tiers,
-                            fused)
+                            fused, plan)
     omega = omega_old + d_omega
-    M = assemble_matrix(p, grid, coeff, omega, quad, chunk, tiers, fused)
+    M = assemble_matrix(p, grid, coeff, omega, quad, chunk, tiers, fused,
+                        plan)
     dM = (M - M_old) / d_omega
     return EigenState(omega=omega, d_omega=d_omega, M=M, dM=dM)
 
 
 def newton_trace_step(p, grid, coeff, state: EigenState, quad=None,
                       chunk: int = 2048, tiers=None,
-                      fused: bool = False) -> EigenState:
+                      fused: bool = False, plan=None) -> EigenState:
     """One Newton-trace-secant iteration (solver.h:113-160)."""
     with span("linalg.step"):
         d_omega = -1.0 / linalg.complex_solve_trace(state.M, state.dM)
     omega = state.omega + d_omega
-    M_new = assemble_matrix(p, grid, coeff, omega, quad, chunk, tiers, fused)
+    M_new = assemble_matrix(p, grid, coeff, omega, quad, chunk, tiers, fused,
+                            plan)
     dM = (M_new - state.M) / d_omega
     return EigenState(omega=omega, d_omega=d_omega, M=M_new, dM=dM)
 
 
 def newton_trace_step_timed(p, grid, coeff, state: EigenState, quad=None,
                             chunk: int = 2048, tiers=None,
-                            fused: bool = False) -> EigenState:
+                            fused: bool = False, plan=None) -> EigenState:
     """``newton_trace_step`` with the reference's per-phase timer sections
     (" - linear solve" / " - integration" / " - differential",
     solver.h:235-382).  On a card each section ends with a device
@@ -225,7 +274,7 @@ def newton_trace_step_timed(p, grid, coeff, state: EigenState, quad=None,
     omega = state.omega + d_omega
     with section(" - integration"):
         M_new = assemble_matrix(p, grid, coeff, omega, quad, chunk, tiers,
-                                fused)
+                                fused, plan)
         sync(M_new)
     with section(" - differential"):
         dM = (M_new - state.M) / d_omega
@@ -235,7 +284,7 @@ def newton_trace_step_timed(p, grid, coeff, state: EigenState, quad=None,
 
 def newton_qr_secant_step(p, grid, coeff, state: EigenState, quad=None,
                           chunk: int = 2048, tiers=None,
-                          fused: bool = False) -> EigenState:
+                          fused: bool = False, plan=None) -> EigenState:
     """The reference's "QRSecant" iteration (solver.h:210-383), the TRUE
     trajectory: column-pivoted QR M P = Q R (zgeqp3 there, the
     Businger-Golub Householder sweep ``linalg.qr_column_pivoted`` here),
@@ -249,14 +298,15 @@ def newton_qr_secant_step(p, grid, coeff, state: EigenState, quad=None,
     with span("linalg.step"):
         d_omega = linalg.qr_secant_delta(state.M, state.dM)
     omega = state.omega + d_omega
-    M_new = assemble_matrix(p, grid, coeff, omega, quad, chunk, tiers, fused)
+    M_new = assemble_matrix(p, grid, coeff, omega, quad, chunk, tiers, fused,
+                            plan)
     dM = (M_new - state.M) / d_omega
     return EigenState(omega=omega, d_omega=d_omega, M=M_new, dM=dM)
 
 
 def newton_bordered_step(p, grid, coeff, state: EigenState, quad=None,
                          chunk: int = 2048, tiers=None,
-                         fused: bool = False) -> EigenState:
+                         fused: bool = False, plan=None) -> EigenState:
     """Bordered-Newton update on the smallest singular pair -- the cheaper
     analogue of the QR-secant step (same fixed points, smaller basin): v by
     inverse iteration, left vector v^T (M is complex symmetric),
@@ -267,7 +317,8 @@ def newton_bordered_step(p, grid, coeff, state: EigenState, quad=None,
         den = linalg.complex_bilinear(v, state.dM)
         d_omega = -num / den
     omega = state.omega + d_omega
-    M_new = assemble_matrix(p, grid, coeff, omega, quad, chunk, tiers, fused)
+    M_new = assemble_matrix(p, grid, coeff, omega, quad, chunk, tiers, fused,
+                            plan)
     dM = (M_new - state.M) / d_omega
     return EigenState(omega=omega, d_omega=d_omega, M=M_new, dM=dM)
 
@@ -451,7 +502,7 @@ def refine_quad(quad, dtype, factor: int = 2) -> dict:
 def host64_polish(p, grid, coeff, state: EigenState, tol: float,
                   max_steps: int = 8, quad=None, chunk: int = 2048,
                   tiers=None, fused: bool = False,
-                  omega: complex | None = None):
+                  omega: complex | None = None, plan=None):
     """Hybrid-precision certification polish: assembly in the working
     precision (K1 for float32), linear algebra in complex128 on the same
     device.
@@ -522,7 +573,7 @@ def host64_polish(p, grid, coeff, state: EigenState, tol: float,
             break
         A_new = assemble_matrix(
             p, grid, coeff, torch.tensor(omega, dtype=cdtype, device=dev),
-            quad, chunk, tiers, fused).to(c128)
+            quad, chunk, tiers, fused, plan).to(c128)
         LAST_SOLVE["polish_assemblies"] += 1
         dA = (A_new - A) / d_omega
         A = A_new
@@ -699,14 +750,17 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
     if fused and dtype == torch.float64:
         raise ValueError("fused=True is float32-only (the CUDA kernel K1)")
 
-    kw = dict(quad=quad, chunk=chunk, tiers=tiers, fused=fused)
+    plan = assembly_plan(p, grid, quad, tiers) \
+        if kernel_route(p, grid, fused) else None
+    kw = dict(quad=quad, chunk=chunk, tiers=tiers, fused=fused, plan=plan)
     step = functools.partial(
         newton_trace_step_timed if timed else _STEP_FNS[method],
         p, grid, coeff, **kw)
     f32 = dtype != torch.float64
     limit = p.iteration_step_limit + 1
     omega0 = torch.tensor(complex(omega_init), dtype=cdtype, device=device)
-    state = init_state(p, grid, coeff, omega0, quad, chunk, tiers, fused)
+    state = init_state(p, grid, coeff, omega0, quad, chunk, tiers, fused,
+                       plan)
     LAST_SOLVE.clear()
     state, n_steps = _newton_loop(step, state, tol, limit, f32, callback,
                                   lag=1 if loop == "device" else 0)

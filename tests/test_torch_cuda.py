@@ -1,10 +1,11 @@
 """The CUDA kernels on an NVIDIA GPU against their plain PyTorch versions:
 K1 and the float32 solves through it (Newton, the shift-invert Arnoldi
 with its polish, and K1 at the window shape of the mesh-sharded banded
-assembly); K2, K3 and K4 (the fused PIC marker pass, in each of its
-forms, the cluster form's clusters of 2, 4 and 8 among them) and the fused
-PIC run; K5 (the BSR SpMV) and the banded solve through
-it; the driver's three kernel routes from an input dict, each against
+assembly); the dense assembly's kernels P and Q around K1 against the
+torch they replace (inputs, M, solves, launches); K2, K3 and K4 (the
+fused PIC marker pass, in each of its forms, the cluster form's clusters
+of 2, 4 and 8 among them) and the fused PIC run; K5 (the BSR SpMV) and
+the banded solve through it; the driver's three kernel routes from an input dict, each against
 the same driver call on CPU tensors; a one-rank NCCL mesh solve against
 the single-device solve; the sorted-window PIC path (plain torch, no
 kernel) against the plain run; and N1 (the float64 adaptive assembly of the
@@ -27,8 +28,9 @@ import torch
 import emme_tpu_torch as et
 from emme_tpu_torch import convert, driver, native
 from emme_tpu_torch.grid import Grid
-from emme_tpu_torch.ops import (adaptive, cuda_adaptive, cuda_kappa, cuda_spmv,
-                                kernels, singularity, sparse)
+from emme_tpu_torch.ops import (adaptive, cuda_adaptive, cuda_assembly,
+                                cuda_kappa, cuda_spmv, kernels, singularity,
+                                sparse)
 from emme_tpu_torch.parallel import mesh as mesh_mod
 from emme_tpu_torch.solvers import (arnoldi, cuda_pic, eigen, eigen_native,
                                     pic, sparse_eigen)
@@ -123,6 +125,138 @@ def test_arnoldi_solve_f32_tok128_through_kernel(card):
     for s, e in zip(sigmas, ests):
         one, _, _ = arnoldi.solve_one_shift(p, grid, coeff, s, 24)
         assert abs(e - one) <= 1e-4 * abs(one)
+
+
+_ASSEMBLY_CASES = {"tok": ("tokamak", -0.8 + 0.25j, 5e-7),
+                   "stel": ("stellarator", -1.656 + 2.49j, 5e-6)}
+
+
+def _assembly_case(card, case, n):
+    name, om, bar = _ASSEMBLY_CASES[case]
+    p = et.from_config(_cfg(name, n), dtype=torch.float32, device=card)
+    grid = Grid.create(p.length, n, dtype=torch.float32, device=card)
+    coeff = singularity.singularity_coeff_matrix(n, dtype=torch.float32,
+                                                 device=card)
+    tiers = kernels.tier_thresholds_ij(2.0 * float(p.length) / (n - 1), n)
+    return (p, grid, coeff, tiers,
+            torch.tensor(om, dtype=torch.complex64, device=card), bar)
+
+
+def _max_ulps(a, b):
+    """The largest distance of ``a`` from ``b`` in units of b's last
+    place (float32)."""
+    a, b = a.float(), b.float()
+    step = (torch.nextafter(b.abs(), torch.full_like(b, float("inf")))
+            - b.abs()).double()
+    return float(((a.double() - b.double()).abs() / step).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tok", "stel"])
+def test_assembly_inputs_match_prepare(card, case):
+    """Kernel P at n = 128: every tier's K1 inputs (mid, halfw, pair, scal)
+    within 4 ulp of ``cuda_kappa._prepare``'s on the same tier's pairs,
+    the same omega and mesh, one launch for all tiers."""
+    p, grid, _coeff, tiers, omega, _bar = _assembly_case(card, case, 128)
+    plan = eigen.assembly_plan(p, grid, None, tiers)
+    buf = cuda_assembly.inputs(plan, omega)
+    groups = eigen.pair_plan(128, tiers, str(grid.eta.device))["groups"]
+    assert len(groups) == len(plan.tiers) >= 2
+    for t, (iu, ju, spec) in zip(plan.tiers, groups):
+        quad = kernels.scaled_quad(None, torch.float32, spec)
+        want = cuda_kappa._prepare(p, grid.eta[iu], grid.eta[ju], omega, quad)
+        got = plan.inputs(buf, t)
+        assert t.order == want[4]
+        for a, b in zip(got, want[:4]):
+            assert a.shape == b.shape and bool(torch.isfinite(a).all())
+            assert _max_ulps(a, b) <= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tok", "stel"])
+def test_kernel_route_assembly_matches_torch_route(card, case):
+    """M(omega) at n = 1024 through P, K1 and Q against the torch route on
+    the card (``_tiered_pair_values`` through K1, placed by
+    ``_materialize_from_pairs``): within K1's bar against its plain version
+    (5e-7 electrostatic, 5e-6 electromagnetic, of max(scale, 1)), counted
+    once in ``ASSEMBLY_ROUTE["kernels"]`` with one K1 launch a tier."""
+    p, grid, coeff, tiers, omega, bar = _assembly_case(card, case, 1024)
+    plan = eigen.assembly_plan(p, grid, None, tiers)
+    before, k1 = dict(eigen.ASSEMBLY_ROUTE), cuda_kappa.LAUNCHES
+    M = eigen.assemble_matrix(p, grid, coeff, omega, tiers=tiers, fused=True,
+                              plan=plan)
+    assert eigen.ASSEMBLY_ROUTE["kernels"] == before["kernels"] + 1
+    assert eigen.ASSEMBLY_ROUTE["torch"] == before["torch"]
+    assert cuda_kappa.LAUNCHES - k1 == len(plan.tiers)
+    want = eigen._assemble_torch(p, grid, coeff, omega, tiers=tiers,
+                                 fused=True)
+    dim = 1024 * (2 if p.electromagnetic else 1)
+    assert M.shape == want.shape == (dim, dim) and M.dtype == torch.complex64
+    assert bool(torch.isfinite(M).all())
+    scale = float(want.abs().max())
+    assert float((M - want).abs().max()) <= bar * max(scale, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tok", "stel"])
+def test_solve_kernel_route_matches_torch_route(card, case, monkeypatch):
+    """A float32 solve at n = 128 on the kernel route lands within 1e-6 of
+    the same solve on the torch route (``kernel_route`` off)."""
+    name, om, _bar = _ASSEMBLY_CASES[case]
+    p = et.from_config(_cfg(name, 128), dtype=torch.float32, device=card)
+    tol = 1e-5 if case == "tok" else 1e-6
+    om_k, _vec, _steps, _st = eigen.solve(p, om, tol=tol)
+    monkeypatch.setattr(eigen, "kernel_route", lambda *a: False)
+    before = dict(eigen.ASSEMBLY_ROUTE)
+    om_t, _vec, _steps, _st = eigen.solve(p, om, tol=tol)
+    assert eigen.ASSEMBLY_ROUTE["kernels"] == before["kernels"]
+    assert eigen.ASSEMBLY_ROUTE["torch"] > before["torch"]
+    assert abs(om_k - om_t) / abs(om_t) < 1e-6
+
+
+@pytest.mark.cuda
+def test_assembly_route_counts_every_card_assembly(card):
+    """A tok128 float32 solve with its complex128 polish on the card: every
+    dense assembly (two seeds, each queued step, each polish step's) takes
+    the kernels, none the torch route."""
+    p = et.from_config(_cfg("tokamak", 128), dtype=torch.float32, device=card)
+    eigen.ASSEMBLY_ROUTE.update(kernels=0, torch=0)
+    om, _vec, _n, _st = eigen.solve(p, -0.8 + 0.25j, tol=1e-6, host64=True)
+    did = eigen.LAST_SOLVE
+    assert eigen.ASSEMBLY_ROUTE == {
+        "kernels": 2 + did["queued_steps"] + did["polish_assemblies"],
+        "torch": 0}
+    assert abs(om - GOLDEN_TOK128) / abs(GOLDEN_TOK128) < 1e-5
+
+
+@pytest.mark.cuda
+def test_assembly_launches_under_profiler(card):
+    """One tok1024 ``assemble_matrix`` with its solve's plan launches 10
+    kernels or fewer on the card, K1 among them once a tier (4), and
+    nothing else named like K1."""
+    from torch.profiler import ProfilerActivity, profile
+    p, grid, coeff, tiers, omega, _bar = _assembly_case(card, "tok", 1024)
+    plan = eigen.assembly_plan(p, grid, None, tiers)
+
+    def assemble():
+        return eigen.assemble_matrix(p, grid, coeff, omega, tiers=tiers,
+                                     fused=True, plan=plan)
+
+    assemble()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        assemble()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if not str(e.device_type()).endswith("CPU")
+             and not e.name().startswith(("Memcpy", "Memset"))
+             and e.duration_ns() > 0]
+    k1 = [n for n in names if "kappa_pairs_kernel" in n]
+    assert len(plan.tiers) == 4 and len(k1) == 4
+    assert len(names) <= 10, names
+    assert sum("assembly_inputs_kernel" in n for n in names) == 1
+    assert sum("assembly_place_kernel" in n for n in names) == 1
 
 
 def _pic_case(card, n, mpc, dc=True, seed=0):
