@@ -28,7 +28,9 @@ def main(argv=None):
                          "(default: auto)")
     ap.add_argument("--f32", action="store_true",
                     help="single precision (complex64) -- the fast path "
-                         "through the CUDA kernels")
+                         "through the CUDA kernels; an input with "
+                         "\"eigen_backend\": \"exact\" (the float64 "
+                         "adaptive engine) refuses it")
     ap.add_argument("--host64", action="store_true",
                     help="hybrid polish: assembly in the working precision "
                          "+ complex128 linear algebra on the same device "

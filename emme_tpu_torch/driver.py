@@ -46,7 +46,7 @@ from .ops import kernels
 from .ops.sparse import save_bdia_dump
 from .parallel import mesh as mesh_mod
 from .parallel import sharded, spike
-from .solvers import cuda_pic, eigen, pic, sparse_eigen
+from .solvers import cuda_pic, eigen, eigen_native, pic, sparse_eigen
 from .utils import debug as debug_mod
 from .utils import provenance
 from .utils.timer import Timer, host_read, section, span
@@ -120,7 +120,8 @@ def solve_once_eigen(cfg: dict, omega_guess: complex, matrix_file=None,
     object and the converged omega for continuation.
 
     Config surface beyond the reference: ``eigen_backend`` ('dense' |
-    'sparse', the never-dense block-banded solve), ``iteration_method``,
+    'sparse', the never-dense block-banded solve | 'exact', below),
+    ``iteration_method``,
     ``quad_tiered``, ``fused_assembly`` (kernel integrals through the CUDA
     kernel K1; default on for float32), ``eigen_timers`` (the dense loop's
     per-phase sections), ``band_deta``, ``band_block``, ``m_krylov``,
@@ -131,7 +132,18 @@ def solve_once_eigen(cfg: dict, omega_guess: complex, matrix_file=None,
     dense backend assembles pair-sharded (``parallel/sharded.solve``,
     TraceSecant only), the sparse backend runs the distributed SPIKE
     Newton solve (``parallel/spike.solve``); the solve runs on the mesh's
-    device and rank 0 of its ``rows`` axis writes the dump."""
+    device and rank 0 of its ``rows`` axis writes the dump.
+
+    ``eigen_backend`` 'exact': the reference-exact engine,
+    ``eigen_native.solve`` (every kernel integral an adaptive
+    Gauss-Kronrod integral in float64 to the input's
+    ``integration_*`` keys, kernel N1 on a card), TraceSecant or QRSecant
+    to ``iteration_precision``.  float64 only (another ``dtype`` raises);
+    no mesh form (a mesh raises); no quadrature guard, which tests static
+    panel meshes this backend never uses: the result's
+    ``quadrature_guard`` says it did not run.  ``quad``, ``chunk`` and
+    ``host64`` have nothing to set there.  The result has the dense
+    backend's fields and eigenvector convention."""
     _check_mesh(mesh)
     if mesh is not None:
         device = mesh.device
@@ -141,6 +153,12 @@ def solve_once_eigen(cfg: dict, omega_guess: complex, matrix_file=None,
 
     backend = cfg.get("eigen_backend", "dense")
     method = cfg.get("iteration_method", "TraceSecant")
+    if backend == "exact":
+        if dtype != torch.float64:
+            raise ValueError(f"eigen_backend 'exact' is float64 only, got "
+                             f"{dtype}")
+        if mesh is not None:
+            raise ValueError("eigen_backend 'exact' has no mesh form")
     stats: dict = {}
     with section("Iteration"):
         if backend == "sparse" and mesh is not None:
@@ -201,9 +219,13 @@ def solve_once_eigen(cfg: dict, omega_guess: complex, matrix_file=None,
                 timed=bool(cfg.get("eigen_timers", False)),
                 fused=cfg.get("fused_assembly"))
             M_dump = state.M
+        elif backend == "exact":
+            omega, vec, n_steps, M_dump = eigen_native.solve(
+                p, omega_guess, tol=tol, method=method)
         else:
             raise ValueError(
-                f"eigen_backend must be 'dense' or 'sparse', got {backend!r}")
+                "eigen_backend must be 'dense', 'sparse' or 'exact', got "
+                f"{backend!r}")
     debug_mod.check_finite("omega", omega)
     debug_mod.check_finite("eigenvector", vec)
     debug_mod.check_finite("operator M(omega)", M_dump)
@@ -226,7 +248,10 @@ def solve_once_eigen(cfg: dict, omega_guess: complex, matrix_file=None,
     if guard_mode not in ("warn", "refine", "off"):
         raise ValueError(
             f"quad_guard must be 'warn', 'refine' or 'off', got {guard_mode!r}")
-    if guard_mode != "off":
+    if backend == "exact":
+        guard_stats = {"run": False, "reason": "adaptive integrals to the "
+                       "input's integration keys: no static panel mesh"}
+    elif guard_mode != "off":
         with span("driver.guard"):
             grid = Grid.create(p.length, p.npoints, dtype=dtype,
                                device=p.device)

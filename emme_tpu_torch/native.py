@@ -9,7 +9,9 @@ version (``ops/adaptive.py``) where the caller asked for the CPU.  The
 functions take the port's ``Params`` (float64 from ``from_config``) and
 return complex128 tensors on ``p.device``.  ``n_threads`` stays in the
 signatures for parity with ``emme_tpu.native`` and is not used: the card
-runs the integrals in N1's warps.
+runs the integrals in N1's warps.  ``assemble`` opens the dense path's
+spans: ``layer.assembly.pairs`` around the integrals and the kernels made
+of them, ``layer.assembly.place`` around the writes into M.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from .ops import adaptive, cuda_adaptive
 from .ops.adaptive import phys_from_params  # noqa: F401  (public)
+from .utils.timer import span
 
 
 def build() -> str:
@@ -90,34 +93,37 @@ def assemble(p, coeff, omega, n_threads=None):
     engine's entries (emme_native.cpp:439-496)."""
     dev = p.device
     n = int(p.npoints)
-    iu, ju = torch.triu_indices(n, n, 1, device=dev)
-    rows, m, grid, ph = pair_integrals(p, iu, ju)
-    vals, _panels, _miller = cuda_adaptive.integrate(
-        rows, m, adaptive.scalars(ph, omega))
-    npairs = iu.numel()
-    k = adaptive.ion_prefactor(ph, vals).reshape(npairs, -1)
-    dx = 2.0 * ph.length / (n - 1)
-    coeff = _f64(coeff, dev)
     em = bool(p.electromagnetic)
-    dim = 2 * n if em else n
-    M = torch.zeros((dim, dim), dtype=torch.complex128, device=dev)
-    a = -k[:, 0] * coeff[iu, ju] * dx
-    M[iu, ju] = a
-    M[ju, iu] = a
-    diag = torch.arange(n, device=dev)
-    M[diag, diag] = 1.0 + 1.0 / ph.tau
-    if em:
-        ei, ej = grid[iu, None], grid[ju, None]
-        ke = adaptive.kappa_electron(ph, m.reshape(npairs, 3)[:, 1:], ei, ej,
-                                     omega)
-        u = (k[:, 1] + ke[:, 0]) * dx
-        d = (k[:, 2] + ke[:, 1]) * dx
-        M[iu, ju + n] = u
-        M[ju, iu + n] = -u
-        M[iu + n, ju] = -u
-        M[ju + n, iu] = u
-        M[iu + n, ju + n] = d
-        M[ju + n, iu + n] = d
-        M[diag + n, diag + n] = ((2.0 * ph.tau) / ph.beta_e
-                                 * adaptive.bi_eta(ph, grid)).to(M.dtype)
+    with span("assembly.pairs"):
+        iu, ju = torch.triu_indices(n, n, 1, device=dev)
+        rows, m, grid, ph = pair_integrals(p, iu, ju)
+        vals, _panels, _miller = cuda_adaptive.integrate(
+            rows, m, adaptive.scalars(ph, omega))
+        npairs = iu.numel()
+        k = adaptive.ion_prefactor(ph, vals).reshape(npairs, -1)
+        if em:
+            ke = adaptive.kappa_electron(ph, m.reshape(npairs, 3)[:, 1:],
+                                         grid[iu, None], grid[ju, None],
+                                         omega)
+    dx = 2.0 * ph.length / (n - 1)
+    with span("assembly.place"):
+        coeff = _f64(coeff, dev)
+        dim = 2 * n if em else n
+        M = torch.zeros((dim, dim), dtype=torch.complex128, device=dev)
+        a = -k[:, 0] * coeff[iu, ju] * dx
+        M[iu, ju] = a
+        M[ju, iu] = a
+        diag = torch.arange(n, device=dev)
+        M[diag, diag] = 1.0 + 1.0 / ph.tau
+        if em:
+            u = (k[:, 1] + ke[:, 0]) * dx
+            d = (k[:, 2] + ke[:, 1]) * dx
+            M[iu, ju + n] = u
+            M[ju, iu + n] = -u
+            M[iu + n, ju] = -u
+            M[ju + n, iu] = u
+            M[iu + n, ju + n] = d
+            M[ju + n, iu + n] = d
+            M[diag + n, diag + n] = ((2.0 * ph.tau) / ph.beta_e
+                                     * adaptive.bi_eta(ph, grid)).to(M.dtype)
     return M

@@ -4,7 +4,10 @@ Counterpart of ``emme_tpu/solvers/eigen_native.py``: the Newton secant
 iteration (TraceSecant, solver.h:113-160; QRSecant, solver.h:210-383) on
 ``native.assemble``, whose integrals run through kernel N1 on the card and
 its plain version on the CPU, with the linear algebra of ``ops/linalg`` in
-complex128 on the same device.
+complex128 on the same device.  It opens the dense path's spans: each
+step's trace solve or QR step under ``layer.linalg.step``, the SVD null
+vector under ``layer.linalg.vector``, and each step's read of d_omega
+under ``layer.host_read`` (``native.assemble`` opens the assembly's).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 from .. import native
 from ..ops import linalg
 from ..ops.singularity import singularity_coeff_matrix
+from ..utils.timer import host_read, span
 
 METHODS = ("TraceSecant", "QRSecant")
 
@@ -40,10 +44,12 @@ def solve(p, omega_init: complex, tol: float = 1e-6, callback=None,
 
     n_steps = 0
     for j in range(p.iteration_step_limit + 1):
-        if method == "QRSecant":
-            d_omega = complex(linalg.qr_secant_delta(M, dM))
-        else:
-            d_omega = complex(-1.0 / linalg.complex_solve_trace(M, dM))
+        with span("linalg.step"):
+            if method == "QRSecant":
+                d_omega = linalg.qr_secant_delta(M, dM)
+            else:
+                d_omega = -1.0 / linalg.complex_solve_trace(M, dM)
+        d_omega = host_read(complex, d_omega)
         omega = omega + d_omega
         M_new = native.assemble(p, coeff, omega, n_threads)
         dM = (M_new - M) / d_omega
@@ -54,5 +60,6 @@ def solve(p, omega_init: complex, tol: float = 1e-6, callback=None,
         if abs(d_omega) < tol * abs(omega):
             break
 
-    vec = linalg.null_space_vector(M, "svd")
+    with span("linalg.vector"):
+        vec = linalg.null_space_vector(M, "svd")
     return omega, vec, n_steps, M

@@ -1053,6 +1053,31 @@ def test_native_solve_tok32_on_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("method", ["TraceSecant", "QRSecant"])
+def test_exact_backend_tok128_on_card(card, method):
+    """The driver's exact backend on the card at tok128: every assembly
+    one N1 launch, the golden tok128 omega at the engine's 1e-9, and the
+    eigenpair judged on 16 seeded rows of the benchmark's plain adaptive
+    reference, computed on the card: the backward error and the omega
+    shift the rows ask for at the float64 floor of the Newton loop's last
+    step (1e-14 on the CPU)."""
+    from portbench.reference import adaptive as ref
+    cfg = dict(_cfg("tokamak", 128), eigen_backend="exact",
+               iteration_method=method)
+    before = cuda_adaptive.LAUNCHES
+    res, om = driver.solve_once_eigen(cfg, -0.8 + 0.25j,
+                                      dtype=torch.float64)
+    steps = res["iteration_steps"]
+    assert cuda_adaptive.LAUNCHES - before == 2 + steps
+    assert abs(om - GOLDEN_TOK128) / abs(GOLDEN_TOK128) < 1e-9
+    assert res["quadrature_guard"]["run"] is False
+    v = np.array(res["eigenvector"])
+    rows = np.random.default_rng(128).choice(128, 16, replace=False)
+    got = ref.row_check(cfg, om, v[:, 0] + 1j * v[:, 1], rows, device=card)
+    assert got["residual"] < 1e-10 and got["omega_gap"] < 1e-9, got
+
+
+@pytest.mark.cuda
 def test_adaptive_kernel_refuses_a_deep_stack(card):
     """A depth limit past the shared-memory stack raises; nothing launches
     and nothing falls back."""

@@ -141,6 +141,30 @@ def test_every_newton_step_opens_its_linear_algebra(method):
     assert not _nested_in_own_name(spans)
 
 
+@pytest.mark.parametrize("method", ["TraceSecant", "QRSecant"])
+def test_exact_backend_opens_the_dense_paths_spans(method):
+    """The driver's exact backend (``eigen_native.solve`` on
+    ``native.assemble``): an assembly's two spans each assembly, one
+    ``layer.linalg.step`` and one ``layer.host_read`` of d_omega a Newton
+    step, one ``layer.linalg.vector``, the result's copy read, and no
+    guard; none nests in its own name."""
+    cfg = _input("tokamak.json", npoints=32, eigen_backend="exact",
+                 iteration_method=method)
+    (res, _), spans = _traced(lambda: driver.solve_once_eigen(
+        cfg, GUESS, dtype=torch.float64, device="cpu"))
+    steps = res["iteration_steps"]
+    names = collections.Counter(name for name, _, _ in spans)
+    assert names["layer.assembly.pairs"] == names["layer.assembly.place"] \
+        == steps + 2
+    assert names["layer.linalg.step"] == steps
+    assert names["layer.linalg.vector"] == 1
+    assert names["layer.host_read"] == steps + 1
+    assert names["layer.driver.params"] == 1
+    assert "layer.driver.guard" not in names
+    assert set(names) <= set(SPANS)
+    assert not _nested_in_own_name(spans)
+
+
 @pytest.mark.parametrize("loop", ["host", "device"])
 def test_every_host_read_is_a_span(loop):
     """``layer.host_read`` spans a solve's reads: each counted blocking read
