@@ -26,6 +26,17 @@ check exits non-zero:
    torch around K1: CUDA-event and host-clock ms, the kernels each
    launches (torch.profiler), and the two operators' largest gap, held to
    phase 3's bar (5e-7 / 5e-6 max(scale, 1)).
+3c. guard_routes: the driver's quadrature guard at tok1024 and stel1024
+   (the solve's tier table and plan) at the converged omega and at one
+   where the flags fire, on each route, the kernels (P, G, R, one host
+   read) and the torch integrand: both reports (the same n_sampled,
+   frac_flagged within 0.01, the largest errors within the torch route's
+   own card-to-CPU spread), G's rows pair by pair against the torch
+   integrand and R's report against the plain reduction of those rows;
+   at the converged omega host-clock ms, the kernels and host reads each
+   route makes (at most 10 and 2 on the kernels), G's CUDA-event ms beside
+   its bound (its nodes times K1's operations a node,
+   portbench/roofline/k1.py).
 4. slice: the main path, from_config(tokamak, npoints=1024, float32, cuda)
    -> eigen.solve(p, -0.8+0.25j, tol=1e-5, chunk=16384) at its defaults on
    a card (the device loop, the null vector by inverse iteration), twice;
@@ -121,7 +132,9 @@ check exits non-zero:
    "--chunk", "16384", "-q"]) twice, the second timed and counted:
    output.json's eigenvalue within 2e-6 of golden tok1024, an eigenvector
    of 1024 entries, eigenMatrics/eigenMatrix.bin of 1024^2 x 16 bytes, the
-   quadrature guard's record, K1 launches > 0; its seconds beside phase
+   quadrature guard's record, K1 launches > 0, the guard on the kernels
+   (eigen.GUARD_ROUTE one "kernels", G and R launched once each); its
+   seconds beside phase
    5b's for the same solve (the driver's own cost: guard, dump, JSON) and
    the timer's sections ("All", "Iteration", "Output": the dump and
    output.json; the guard is what is left of "All").
@@ -292,6 +305,14 @@ CERTIFY_BAR = 2e-6   # tests/test_eigen.py:90, host64 vs golden
 STEL_GUESS = -1.656 + 2.490j
 STEL_GOLDEN = complex(-1.65655594094, 2.49032058254)
 STEL_BAR = 2e-4
+# guard_routes: an omega at which the integrand outpaces the oscillatory
+# panels, so the guard's flags fire, and the bars between the guard's
+# kernel and torch routes (tests/test_torch_cuda.py, where each is
+# measured and argued)
+GUARD_BAD_OMEGA = -6.0 + 0.001j
+GUARD_ABS_SPREAD = 3e-4
+GUARD_REL_FACTOR = 5.0
+GUARD_BAD_CEIL = 3e-6
 K5_TIME_LIMIT_S = 120
 # dense_arnoldi: arnoldi.solve's tolerance (the main path's), the Krylov
 # depth of tests/test_sparse_arnoldi.py and benchmarks/bench_arnoldi.py,
@@ -1938,7 +1959,7 @@ def driver_phases(torch, card, slice_omega, certify_s):
     import numpy as np
 
     from emme_tpu_torch import cli, from_config
-    from emme_tpu_torch.ops import cuda_kappa, cuda_spmv, sparse
+    from emme_tpu_torch.ops import cuda_guard, cuda_kappa, cuda_spmv, sparse
     from emme_tpu_torch.solvers import cuda_pic, eigen, pic
     from emme_tpu_torch.solvers import sparse_eigen as se
     from emme_tpu_torch.utils.timer import Timer
@@ -1949,6 +1970,9 @@ def driver_phases(torch, card, slice_omega, certify_s):
     def reset_counts():
         cuda_kappa.LAUNCHES = 0
         cuda_spmv.LAUNCHES = 0
+        cuda_guard.LAUNCHES = 0
+        for k in eigen.GUARD_ROUTE:
+            eigen.GUARD_ROUTE[k] = 0
         for k in cuda_pic.LAUNCHES:
             cuda_pic.LAUNCHES[k] = 0
         # as in a fresh process: K3's once-per-process self-check runs again
@@ -2011,6 +2035,8 @@ def driver_phases(torch, card, slice_omega, certify_s):
              driver_overhead_seconds=secs - certify_s,
              timer_sections=Timer.get_timer().timings(),
              quadrature_guard=res["quadrature_guard"], launches=got,
+             guard_route=dict(eigen.GUARD_ROUTE),
+             guard_launches=cuda_guard.LAUNCHES,
              loop=eigen.LAST_SOLVE["loop"], dump_bytes=dump.stat().st_size,
              card=card)
         check(rel < CERTIFY_BAR, f"driver omega rel err {rel:.3e} < "
@@ -2023,6 +2049,10 @@ def driver_phases(torch, card, slice_omega, certify_s):
               f"the quadrature guard ran: {res['quadrature_guard']}")
         check(got["kappa_pairs"] > 0 and eigen.LAST_SOLVE["loop"] == "device",
               f"the driver's solve went through K1 on the device loop: {got}")
+        check(eigen.GUARD_ROUTE == {"kernels": 1, "torch": 0}
+              and cuda_guard.LAUNCHES == 2,
+              f"the driver's guard took the kernels, G and R once each: "
+              f"{eigen.GUARD_ROUTE}, {cuda_guard.LAUNCHES} launches")
         credit("kappa_pairs", got, "driver_eigen")
 
         # 19. driver_pic
@@ -2365,6 +2395,178 @@ def assembly_routes_phase(torch, card):
         emit("assembly_routes", case=f"{case}{N_TOK}", tiers=len(plan.tiers),
              moments=list(plan.ms), max_abs_gap=gap, scale=scale, **row,
              card=card)
+
+
+def guard_routes_phase(torch, card):
+    """Phase 3c (guard_routes): the driver's quadrature guard as a request
+    runs it, at tok1024 and stel1024 (the solve's tier table and assembly
+    plan), at the converged omega and at GUARD_BAD_OMEGA, where the flags
+    fire, on each route -- the kernels (P, G, R and one host read,
+    ``ops/cuda_guard.py``) and the torch integrand -- held to the bars of
+    tests/test_torch_cuda.py::test_guard_kernel_route_matches_torch_route:
+
+    * the reports: the same ``n_sampled`` (4096), ``frac_flagged`` within
+      0.01 (above 0.01 on both at the bad omega), ``max_abs_err`` within
+      GUARD_ABS_SPREAD of the torch route's card reading plus the bar of
+      max(scale, 1), ``max_rel_err`` within GUARD_REL_FACTOR of the nearer
+      of the torch route's card and CPU readings;
+    * G's rows read per sampled pair as R reads them
+      (``cuda_guard.pair_values``) against ``eigen.guard_pairs`` on the
+      card: |K| within the bar (GUARD_BAD_CEIL at the bad omega) of each
+      moment's max(scale, 1), the tier gap within twice that, the embedded
+      error within twice the bar plus 2^-18 of itself;
+    * R's report against ``eigen.guard_report`` on those rows: the largest
+      errors to 1e-6 of themselves, the flagged count within 4.
+
+    At the converged omega besides: host-clock ms, the kernel launches and
+    ``layer.host_read`` spans of each route (launch calls and spans on the
+    host, ``torch.profiler``; at most 10 and 2 on the kernels), and G's
+    device time by CUDA events beside its bound (G's nodes times K1's
+    operations a node from ``portbench/roofline/k1.py``, at the nodes' own
+    share of each Bessel branch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from emme_tpu_torch import from_config
+    from emme_tpu_torch.grid import Grid
+    from emme_tpu_torch.ops import cuda_assembly, cuda_guard, kernels
+    from emme_tpu_torch.solvers import eigen
+    from portbench.roofline import k1 as k1_roofline
+
+    f32 = torch.float32
+    cpu = torch.device("cpu")
+
+    def counts(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        on_host = [e.name() for e in prof.profiler.kineto_results.events()
+                   if str(e.device_type()).endswith("CPU")]
+        return (sum(n.startswith(("cudaLaunch", "cuLaunch"))
+                    for n in on_host), on_host.count("layer.host_read"))
+
+    for case, name, converged in (("tok", "tokamak", GOLDEN_TOK1024),
+                                  ("stel", "stellarator", STEL_GOLDEN)):
+        cfg = load_cfg(name, N_TOK)
+        p = from_config(cfg, dtype=f32)
+        grid = Grid.create(p.length, p.npoints, dtype=f32)
+        p_cpu = from_config(cfg, dtype=f32, device=cpu)
+        grid_cpu = Grid.create(p_cpu.length, p.npoints, dtype=f32,
+                               device=cpu)
+        tiers = kernels.tier_thresholds_ij(
+            2.0 * float(p.length) / (p.npoints - 1), p.npoints)
+        plan = eigen.assembly_plan(p, grid, None, tiers)
+        acc, prec = p.integration_accuracy, p.integration_precision
+        ms = tuple(plan.ms)
+        bar = EM_BAR if p.electromagnetic else ES_BAR
+        gplan = eigen._guard_plan(p.npoints, ms, (4096, 0, tiers, None),
+                                  None, int(p.integration_start_points),
+                                  str(grid.eta.device))
+        for at, omega in (("converged", converged), ("bad", GUARD_BAD_OMEGA)):
+            where = f"{case}{N_TOK} guard at the {at} omega"
+            routes = {
+                "kernels": lambda: eigen.quadrature_guard(
+                    p, grid, omega, tiers=tiers, plan=plan),
+                "torch": lambda: eigen.quadrature_guard(
+                    p, grid, omega, chunk=16384, tiers=tiers, fused=False)}
+            row = {}
+            for route, fn in routes.items():
+                if at == "converged":
+                    n_launch, n_reads = counts(fn)
+                    wall_ms, rep = timed(fn, torch)
+                    row[route] = {"wall_ms": wall_ms, "launches": n_launch,
+                                  "host_reads": n_reads, "report": rep}
+                else:
+                    row[route] = {"report": fn()}
+            row["torch_cpu"] = {"report": eigen.quadrature_guard(
+                p_cpu, grid_cpu, omega, chunk=16384, tiers=tiers)}
+            if at == "converged":
+                check(row["kernels"]["launches"] <= 10
+                      and row["kernels"]["host_reads"] <= 2,
+                      f"{where}: {row['kernels']['launches']} launches, "
+                      f"{row['kernels']['host_reads']} host reads")
+
+            # G's rows per sampled pair against the torch integrand
+            buf = cuda_assembly.inputs(
+                gplan.inputs_plan(plan.points, plan.scalars), omega)
+            out = cuda_guard.pairs(gplan, buf)
+            got = cuda_guard.pair_values(gplan, out, plan.scalars)
+            want = eigen.guard_pairs(p, grid, omega, chunk=16384,
+                                     tiers=tiers)
+            vbar = bar if at == "converged" else GUARD_BAD_CEIL
+            gaps = {"abs_k": 0.0, "gap": 0.0, "error_rel": 0.0}
+            for k in range(len(ms)):
+                s_k = max(float(want[0][:, k].max()), 1.0)
+                d_err = (got[1][:, k] - want[1][:, k]).abs()
+                d = {"abs_k": float((got[0][:, k] - want[0][:, k]).abs().max())
+                     / s_k,
+                     "gap": float((got[2][:, k] - want[2][:, k]).abs().max())
+                     / s_k,
+                     "error_rel": float(((d_err - 2 * bar * s_k).clamp_min(0)
+                                         / want[1][:, k].abs())
+                                        .nan_to_num().max())}
+                gaps = {key: max(v, d[key]) for key, v in gaps.items()}
+            check(gaps["abs_k"] <= vbar and gaps["gap"] <= 2 * vbar
+                  and gaps["error_rel"] <= 2.0 ** -18,
+                  f"{where}: G's rows against the torch integrand {gaps}")
+
+            # R against the plain reduction of G's rows
+            r_flagged, r_abs, r_rel = cuda_guard.report(
+                gplan, out, plan.scalars, acc, prec).tolist()
+            plain = eigen.guard_report(*got, acc, prec)
+            check(abs(r_flagged - plain["frac_flagged"] * 4096) <= 4
+                  and abs(r_abs - plain["max_abs_err"])
+                  <= 1e-6 * plain["max_abs_err"]
+                  and abs(r_rel - plain["max_rel_err"])
+                  <= 1e-6 * plain["max_rel_err"],
+                  f"{where}: R {[r_flagged, r_abs, r_rel]} against the "
+                  f"plain reduction of G's rows {plain}")
+
+            # the reports
+            rep = row["kernels"]["report"]
+            card_rep = row["torch"]["report"]
+            cpu_rep = row["torch_cpu"]["report"]
+            scale = max([1.0] + [float(want[0][:, k].max())
+                                 for k in range(len(ms))])
+            nearer = min(abs(math.log(rep["max_rel_err"] / r["max_rel_err"]))
+                         for r in (card_rep, cpu_rep))
+            check(rep["n_sampled"] == card_rep["n_sampled"] == 4096
+                  and abs(rep["frac_flagged"] - card_rep["frac_flagged"])
+                  <= 0.01
+                  and abs(rep["max_abs_err"] - card_rep["max_abs_err"])
+                  <= GUARD_ABS_SPREAD * card_rep["max_abs_err"] + bar * scale
+                  and nearer <= math.log(GUARD_REL_FACTOR),
+                  f"{where}: reports {rep} vs torch card {card_rep}, torch "
+                  f"cpu {cpu_rep}")
+            if at == "bad":
+                check(rep["frac_flagged"] > 0.01
+                      and card_rep["frac_flagged"] > 0.01,
+                      f"{where}: the flags fire on both routes: {rep} vs "
+                      f"{card_rep}")
+                emit("guard_routes", case=f"{case}{N_TOK}", at=at,
+                     omega=[omega.real, omega.imag], **row, g_rows=gaps,
+                     r_report=[r_flagged, r_abs, r_rel], card=card)
+                continue
+
+            g_ms = event_ms(lambda: cuda_guard.pairs(gplan, buf), torch)
+            nodes = flop = 0.0
+            for t in gplan.tiers:
+                mid, halfw, pair, scal = gplan.inputs_plan(
+                    plan.points, plan.scalars).inputs(buf, t)
+                asym = k1_roofline.asymptotic_share(mid, halfw, pair, scal,
+                                                    t.order)
+                nodes += t.npairs * t.n_panels * t.order
+                flop += k1_roofline.call_work(t.npairs, t.n_panels, t.order,
+                                              len(ms), asym)[0]
+            g = bound(0, flop)
+            emit("guard_routes", case=f"{case}{N_TOK}", at=at,
+                 omega=[omega.real, omega.imag], sets=len(gplan.tiers),
+                 moments=list(ms), **row, g_rows=gaps,
+                 r_report=[r_flagged, r_abs, r_rel], g_ms=g_ms,
+                 g_nodes=nodes, g_bound_ms=g["bound_ms"],
+                 g_bound_share=g["bound_ms"] / g_ms, card=card)
 
 
 def dense_arnoldi_phase(torch, card):
@@ -2878,6 +3080,8 @@ def main():
 
     # 3b. assembly_routes: the kernels around K1 against the torch route
     assembly_routes_phase(torch, card)
+    # 3c. guard_routes: the guard's kernels against its torch route
+    guard_routes_phase(torch, card)
 
     # 4. the slice: the dense float32 TraceSecant solve at n=1024
     def solve():

@@ -307,6 +307,9 @@ kappa_pairs_kernel(const float* __restrict__ mid,
   }
 }
 
+#include "guard.h"   // kernels G and R of the quadrature guard, on K1's device
+                     // functions
+
 }  // namespace
 
 extern "C" {
@@ -371,6 +374,44 @@ int assembly_place_launch(const long long* meta, const long long* outs,
                                     assembly::kThreads, 0,
                                     static_cast<cudaStream_t>(stream)>>>(
       tiers, n, em, points, scalars, omega, coeff, static_cast<float2*>(M));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel G (guard.h) on `stream`: meta as for P, a tier a set, in host
+// memory; buf, P's buffer, and out, (the sets' pairs, 3 n_ms) float32, on
+// the device; tables: kTableLen floats as K1's, then kMaxOrder Gauss
+// weights, in host memory.  Returns cudaGetLastError() after the launch.
+int guard_pairs_launch(const long long* meta, int n_sets, const float* buf,
+                       float* out, int order, int n_ms, int m0, int m1,
+                       int m2, const float* tables, int table_len,
+                       void* stream) {
+  assembly::Tiers sets;
+  if (assembly::read_tiers(meta, nullptr, n_sets, false, &sets) < 0 ||
+      order < 1 || order > kMaxOrder || n_ms < 1 || n_ms > 3 ||
+      table_len != kTableLen + kMaxOrder)
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long total = 0;
+  for (int t = 0; t < sets.count; ++t) total += sets.t[t].npairs;
+  guard::Rule rule;
+  std::memcpy(&rule, tables, sizeof(guard::Rule));
+  const Moments ms = {n_ms, {m0, m1, m2}};
+  guard::guard_pairs_kernel<<<guard::pair_blocks(total), guard::kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      sets, buf, out, total, order, ms, rule);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel R (guard.h) on `stream`, one block: out, G's rows; rows,
+// (n_sampled, 2) int32; scalars, the plan's (assembly::kNumScalars); report,
+// 3 doubles; all on the device.
+int guard_report_launch(const float* out, const int* rows, int n_sampled,
+                        int n_ms, const float* scalars, double accuracy,
+                        double precision, double* report, void* stream) {
+  if (n_sampled < 1 || n_ms < 1 || n_ms > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  guard::guard_report_kernel<<<1, guard::kReportThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      out, rows, n_sampled, n_ms, scalars, accuracy, precision, report);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -259,22 +259,28 @@ def solve_once_eigen(cfg: dict, omega_guess: complex, matrix_file=None,
             # run evaluates far pairs on 2-4x coarser meshes; guarding only
             # the base mesh would miss their under-resolution) and, on the
             # sparse backend, only the kept band (pairs beyond it are never
-            # assembled)
-            tiered = cfg.get("quad_tiered")
-            if tiered is None:
-                tiered = dtype == torch.float32
-            tiers = None
-            if tiered:
-                dxf = 2.0 * host_read(float, p.length) / (p.npoints - 1)
-                tiers = kernels.tier_thresholds_ij(dxf, p.npoints)
+            # assembled).  The single-device dense solve returns its tier
+            # table and its kernels' plan (the point rows and scalars the
+            # guard's kernels read) on its state
+            plan = None
+            if backend == "dense" and mesh is None:
+                tiers, plan = state.tiers, state.plan
+            else:
+                tiered = cfg.get("quad_tiered")
+                if tiered is None:
+                    tiered = dtype == torch.float32
+                tiers = None
+                if tiered:
+                    dxf = 2.0 * host_read(float, p.length) / (p.npoints - 1)
+                    tiers = kernels.tier_thresholds_ij(dxf, p.npoints)
             max_dij = None
             if backend == "sparse":
                 block, h = stats["block"], stats["h"]
                 max_dij = sparse_eigen.em_de_max(p.npoints, h, block) \
                     if p.electromagnetic else (h + 1) * block - 1
-            guard_stats = eigen.quadrature_guard(p, grid, omega, quad=quad,
-                                                 chunk=chunk, tiers=tiers,
-                                                 max_dij=max_dij)
+            guard_stats = eigen.quadrature_guard(
+                p, grid, omega, quad=quad, chunk=chunk, tiers=tiers,
+                max_dij=max_dij, fused=cfg.get("fused_assembly"), plan=plan)
         if guard_stats["frac_flagged"] > 0:
             msg = (f"quadrature guard: {guard_stats['frac_flagged']:.1%} of "
                    f"sampled kernel integrals fail the reference acceptance "

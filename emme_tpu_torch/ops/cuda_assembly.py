@@ -121,11 +121,11 @@ class Plan:
                 buf[:_SCAL])
 
 
-def build_plan(p, grid, groups, quad=None) -> Plan:
-    """The plan of ``grid``'s assemblies.  ``groups``: (iu, ju, quad_t) a
-    tier, the pairs as int64 tensors on the grid's device and the tier's
-    panel mesh (``kernels.scaled_quad``; None: ``quad``).  Made on any
-    device; only the kernels need the card."""
+def layout(groups, quad, order: int):
+    """The tiers of ``groups`` and P's buffer: ((Tier, ...), floats in the
+    buffer, the launchers' int64 meta).  ``groups``: (iu, ju, quad_t) a
+    tier, the pairs as int64 tensors and the tier's panel mesh (None:
+    ``quad``); ``order``: the G-K order where a mesh names none."""
     groups = list(groups)
     if not 1 <= len(groups) <= MAX_TIERS:
         raise ValueError(f"the kernels take 1 to {MAX_TIERS} tiers, got "
@@ -136,26 +136,41 @@ def build_plan(p, grid, groups, quad=None) -> Plan:
         q = (quad if q is None else q) or {}
         counts = tuple(int(q.get(k, preset[k]))
                        for k in ("n_shoulder", "n_osc", "n_tail"))
-        order = int(q.get("order", p.integration_start_points))
         iu, ju = iu.contiguous(), ju.contiguous()
         if iu.dtype != torch.int64 or ju.dtype != torch.int64:
             raise ValueError("tier pairs must be int64")
         size = int(iu.shape[0]) * sum(counts)
         pair = -(-(off + 2 * size) // 4) * 4   # 16-byte rows
-        t = Tier(iu=iu, ju=ju, order=order, counts=counts, mid=off,
-                 halfw=off + size, pair=pair)
+        t = Tier(iu=iu, ju=ju, order=int(q.get("order", order)),
+                 counts=counts, mid=off, halfw=off + size, pair=pair)
         tiers.append(t)
         meta += [iu.data_ptr(), ju.data_ptr(), t.npairs, *counts, t.mid,
                  t.halfw, t.pair]
         off = pair + 4 * t.npairs
+    return tuple(tiers), off, np.asarray(meta, dtype=np.int64)
+
+
+def point_rows(p, grid):
+    """What P reads besides the pairs and omega: the (3, n) point rows
+    eta, g(eta), bi(eta) at the grid's points, float32, and the packed
+    scalars (``SCALARS``)."""
     eta = grid.eta.to(_F32)
     points = torch.stack([eta, p.g(eta).to(_F32),
                           p.bi(eta).to(_F32)]).contiguous()
+    return points, _scalars(p, grid)
+
+
+def build_plan(p, grid, groups, quad=None) -> Plan:
+    """The plan of ``grid``'s assemblies.  ``groups``: (iu, ju, quad_t) a
+    tier, the pairs as int64 tensors on the grid's device and the tier's
+    panel mesh (``kernels.scaled_quad``; None: ``quad``).  Made on any
+    device; only the kernels need the card."""
+    tiers, size, meta = layout(groups, quad, p.integration_start_points)
+    points, scalars = point_rows(p, grid)
     return Plan(n=grid.npoints,
                 ms=(0, 1, 2) if p.electromagnetic else (0,),
-                points=points, scalars=_scalars(p, grid),
-                tiers=tuple(tiers), size=off,
-                meta=np.asarray(meta, dtype=np.int64))
+                points=points, scalars=scalars, tiers=tiers, size=size,
+                meta=meta)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,7 @@ Counterpart of the dense path of ``emme_tpu/solvers/eigen.py`` (reference
   iteration on a card.
 * ``host64_polish``: the certification polish in complex128 on the device.
 * ``quadrature_guard``: the run-time accuracy check of the static panel
-  mesh.
+  mesh; on the card in float32 in kernels beside K1 (``ops/cuda_guard.py``).
 
 One loop body (``_newton_loop``) keeps the convergence rules on device
 tensors; the host reads the done flag after every step (``loop="host"``) or
@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..grid import Grid
-from ..ops import cuda_assembly, cuda_kappa, kernels, linalg
+from ..ops import cuda_assembly, cuda_guard, cuda_kappa, kernels, linalg
 from ..ops.singularity import singularity_coeff_matrix
 from ..utils.timer import host_read, section, span, sync
 
@@ -230,6 +230,11 @@ class EigenState:
     d_omega: Any
     M: Any
     dM: Any
+    # set on the state ``solve`` returns: the tier table it assembled with
+    # and, on the kernels' route, its assembly plan (the driver's guard
+    # takes both)
+    tiers: Any = None
+    plan: Any = None
 
 
 def init_state(p, grid, coeff, omega_init, quad=None, chunk: int = 2048,
@@ -385,9 +390,104 @@ def _sample_pairs(n: int, sample: int, seed: int, max_dij: int | None = None):
     return i, i + d
 
 
+@functools.lru_cache(maxsize=8)
+def guard_sample(n: int, sample: int, seed: int, tiers=None,
+                 max_dij: int | None = None):
+    """The guard's sampled pairs (``_sample_pairs``) and their groups by
+    the tier mesh the assembly gives them: (iu, ju, ((idx, spec), ...)),
+    ``idx`` the positions of a group's pairs, in the tier table's order
+    (one group on the base mesh without ``tiers``).  Made once for its
+    arguments; read-only."""
+    iu, ju = _sample_pairs(n, sample, seed, max_dij)
+    dij = ju - iu
+    groups = []
+    lo = 0
+    for ij_ub, spec in (tiers or ((n + 1, 1.0),)):
+        m = (dij >= lo) & (dij < ij_ub)
+        lo = ij_ub
+        if m.any():
+            groups.append((np.flatnonzero(m), spec))
+    for a in (iu, ju, *(idx for idx, _ in groups)):
+        a.setflags(write=False)
+    return iu, ju, tuple(groups)
+
+
+def guard_pairs(p, grid: Grid, omega, quad=None, chunk: int = 2048,
+                sample: int = 4096, seed: int = 0, tiers=None,
+                max_dij: int | None = None):
+    """The guard's per-pair values through the torch integrand: for each
+    sampled pair (``guard_sample``'s order) and each moment, |K| on the
+    base mesh, its summed embedded error and |K_tier - K| on the tier mesh
+    of its group (0 where the group keeps the base mesh).  Three (n_sampled,
+    len(ms)) real tensors on the grid's device, ``chunk`` pairs a call: the
+    plain version of kernel G and of R's first half."""
+    iu, ju, groups = guard_sample(grid.npoints, sample, seed, tiers, max_dij)
+    ms = (0, 1, 2) if p.electromagnetic else (0,)
+    rdtype = grid.eta.dtype
+    dev = grid.eta.device
+    om = torch.tensor(complex(omega), dtype=kernels.complex_dtype(rdtype),
+                      device=dev)
+    absk, errs, gaps = [], [], []
+    for idx, spec in groups:
+        q_t = kernels.scaled_quad(quad, rdtype, spec) if spec != 1.0 \
+            else None
+        ea = grid.eta[torch.as_tensor(iu[idx], device=dev)]
+        eb = grid.eta[torch.as_tensor(ju[idx], device=dev)]
+        for s in range(0, len(idx), chunk):
+            a, b = ea[s:s + chunk], eb[s:s + chunk]
+            vals, err = kernels.kappa_f_tau(p, a, b, om, ms=ms, quad=quad)
+            absk.append(torch.stack([v.abs() for v in vals], dim=1))
+            errs.append(torch.stack(err, dim=1))
+            if q_t is None:
+                gaps.append(torch.zeros_like(absk[-1]))
+                continue
+            tvals = kernels.kappa_f_tau(p, a, b, om, ms=ms, quad=q_t)[0]
+            gaps.append(torch.stack([(t - v).abs()
+                                     for t, v in zip(tvals, vals)], dim=1))
+    return torch.cat(absk), torch.cat(errs), torch.cat(gaps)
+
+
+def guard_report(absk, err, gap, accuracy: float, precision: float) -> dict:
+    """The guard's report from ``guard_pairs``' values, in float64 after one
+    host read: a pair is flagged where, for some moment, its error or tier
+    gap exceeds max(accuracy, precision |K|); ``max_abs_err`` is the largest
+    max(err, gap), ``max_rel_err`` the largest max(err, gap) / |K|.  NaNs
+    are passed over, as kernel R's fmax does.  The plain version of R."""
+    a, e, g = host_read(torch.stack([absk, err, gap]).double().cpu).numpy()
+    thresh = np.maximum(accuracy, precision * a)
+    flagged = ((e > thresh) | (g > thresh)).any(axis=1)
+    e = np.fmax(e, g)
+    n = a.shape[0]
+    return {
+        "n_sampled": n,
+        "frac_flagged": int(flagged.sum()) / max(n, 1),
+        "max_abs_err": float(np.fmax.reduce(e, axis=None, initial=0.0)),
+        "max_rel_err": float(np.fmax.reduce(e / np.maximum(a, 1e-300),
+                                            axis=None, initial=0.0)),
+    }
+
+
+# Quadrature guards (``quadrature_guard``) since the caller last set them to
+# 0, by route: "kernels", the card's float32 route (P, G and R,
+# ``ops/cuda_guard.py``); "torch", every other.
+GUARD_ROUTE = {"kernels": 0, "torch": 0}
+
+
+@functools.lru_cache(maxsize=8)
+def _guard_plan(n: int, ms: tuple, sample_key: tuple, quad_items,
+                order: int, device: str):
+    """The kernels' plan of a guard's sample (``cuda_guard.Plan``), made
+    once for its arguments: ``sample_key`` those of ``guard_sample`` after
+    n, ``quad_items`` the base mesh's sorted items."""
+    iu, ju, groups = guard_sample(n, *sample_key)
+    quad = dict(quad_items) if quad_items is not None else None
+    return cuda_guard.build_plan(n, ms, groups, iu, ju, quad, order, device)
+
+
 def quadrature_guard(p, grid: Grid, omega, quad=None, chunk: int = 2048,
                      sample: int = 4096, seed: int = 0, tiers=None,
-                     max_dij: int | None = None) -> dict:
+                     max_dij: int | None = None, fused: bool | None = None,
+                     plan=None) -> dict:
     """Runtime accuracy check of the static panel mesh against the
     reference's OWN quadrature acceptance criterion.
 
@@ -398,9 +498,9 @@ def quadrature_guard(p, grid: Grid, omega, quad=None, chunk: int = 2048,
     ``sample`` random (eta, eta') pairs, evaluates every assembled moment's
     kernel (m = 0 electrostatic; m = 0, 1, 2 electromagnetic -- the m >= 1
     moments carry extra norm_vel**m tail weight and are checked with their
-    own magnitudes) WITH its embedded error (``kernels.kappa_f_tau``), and
-    flags pairs whose summed panel error would fail the reference criterion
-    with the run's own integration_accuracy / integration_precision.
+    own magnitudes) WITH its embedded error, and flags pairs whose summed
+    panel error would fail the reference criterion with the run's own
+    integration_accuracy / integration_precision.
 
     ``tiers``: the static |i - j| tier table the assembly actually used
     (``kernels.tier_thresholds_ij``); each sampled pair is then ALSO
@@ -414,78 +514,41 @@ def quadrature_guard(p, grid: Grid, omega, quad=None, chunk: int = 2048,
     ``max_dij``: restrict sampling to |i - j| <= max_dij (the sparse
     backend's kept band -- pairs outside it are never assembled).
 
+    Route, counted in ``GUARD_ROUTE``: where ``kernel_route`` holds (a CUDA
+    grid, float32, K1: ``fused``, default on for float32), kernels P, G and
+    R and one host read (``ops/cuda_guard.py``), with the point rows and
+    scalars of ``plan``, an assembly plan of the same parameters and grid
+    (``assembly_plan``; computed here when None); elsewhere the plain
+    version, ``guard_pairs`` through the torch integrand and
+    ``guard_report``.
+
     Returns {"n_sampled", "frac_flagged", "max_abs_err", "max_rel_err"}.
-    Cost: one extra kernel sweep over ``sample`` pairs through the torch
-    integrand, on the grid's device.
     """
     n = grid.npoints
-    iu, ju = _sample_pairs(n, sample, seed, max_dij)
-    ms = (0, 1, 2) if p.electromagnetic else (0,)
-    rdtype = grid.eta.dtype
-    dev = grid.eta.device
-    om = torch.tensor(complex(omega), dtype=kernels.complex_dtype(rdtype),
-                      device=dev)
-
-    # group sampled pairs by the tier mesh assembly would use for them
-    dij = ju - iu
-    groups = []
-    lo = 0
-    for ij_ub, scale in (tiers or ((n + 1, 1.0),)):
-        m = (dij >= lo) & (dij < ij_ub)
-        lo = ij_ub
-        if m.any():
-            groups.append((np.flatnonzero(m), scale))
-
-    def run_group(idx, scale):
-        q_t = kernels.scaled_quad(quad, rdtype, scale) \
-            if scale != 1.0 else None
-        ea = grid.eta[torch.as_tensor(iu[idx], device=dev)]
-        eb = grid.eta[torch.as_tensor(ju[idx], device=dev)]
-        absks, errs, tdiffs = ([[] for _ in ms] for _ in range(3))
-        for s in range(0, len(idx), chunk):
-            a, b = ea[s:s + chunk], eb[s:s + chunk]
-            vals, err = kernels.kappa_f_tau(p, a, b, om, ms=ms, quad=quad)
-            tvals = kernels.kappa_f_tau(p, a, b, om, ms=ms, quad=q_t)[0] \
-                if q_t is not None else ()
-            for k, v in enumerate(vals):
-                absks[k].append(v.abs())
-                errs[k].append(err[k])
-                if q_t is not None:
-                    tdiffs[k].append((tvals[k] - v).abs())
-
-        def host(parts):
-            return [host_read(torch.cat(v).double().cpu).numpy()
-                    for v in parts]
-
-        return host(absks), host(errs), host(tdiffs) if q_t is not None \
-            else None
-
     acc = float(p.integration_accuracy)
     prec = float(p.integration_precision)
-    n_sampled = 0
-    n_flagged = 0
-    max_abs_err = 0.0
-    max_rel_err = 0.0
-    for idx, scale in groups:
-        absks, errs, tdiffs = run_group(idx, scale)
-        flagged = np.zeros(len(idx), bool)
-        for k, (absk, err) in enumerate(zip(absks, errs)):
-            thresh = np.maximum(acc, prec * absk)
-            flagged |= err > thresh
-            if tdiffs is not None:
-                flagged |= tdiffs[k] > thresh
-                err = np.maximum(err, tdiffs[k])
-            max_abs_err = max(max_abs_err, float(err.max()))
-            max_rel_err = max(
-                max_rel_err, float((err / np.maximum(absk, 1e-300)).max()))
-        n_sampled += len(idx)
-        n_flagged += int(flagged.sum())
-    return {
-        "n_sampled": n_sampled,
-        "frac_flagged": n_flagged / max(n_sampled, 1),
-        "max_abs_err": max_abs_err,
-        "max_rel_err": max_rel_err,
-    }
+    tiers = tuple(tiers) if tiers is not None else None
+    if fused is None:
+        fused = grid.eta.dtype == torch.float32
+    if not kernel_route(p, grid, fused):
+        GUARD_ROUTE["torch"] += 1
+        return guard_report(*guard_pairs(p, grid, omega, quad, chunk, sample,
+                                         seed, tiers, max_dij), acc, prec)
+    GUARD_ROUTE["kernels"] += 1
+    if plan is None:
+        points, scalars = cuda_assembly.point_rows(p, grid)
+    elif plan.n != n or plan.points.device != grid.eta.device:
+        raise ValueError(f"the assembly plan is for n = {plan.n} on "
+                         f"{plan.points.device}, the grid n = {n} on "
+                         f"{grid.eta.device}")
+    else:
+        points, scalars = plan.points, plan.scalars
+    ms = (0, 1, 2) if p.electromagnetic else (0,)
+    quad_items = tuple(sorted(quad.items())) if quad else None
+    gplan = _guard_plan(n, ms, (sample, seed, tiers, max_dij), quad_items,
+                        int(p.integration_start_points),
+                        str(grid.eta.device))
+    return cuda_guard.guard(gplan, points, scalars, omega, acc, prec)
 
 
 def refine_quad(quad, dtype, factor: int = 2) -> dict:
@@ -679,7 +742,9 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
     """Full eigen solve: returns (omega, eigenvector, n_steps, state).
 
     ``omega`` is a Python complex; the eigenvector and ``state`` stay on
-    the parameters' device.  Convergence: |d_omega| < tol * |omega| within
+    the parameters' device, and ``state`` carries the tier table and, on
+    the kernels' route, the assembly plan the solve used (``tiers``,
+    ``plan``).  Convergence: |d_omega| < tol * |omega| within
     iteration_step_limit steps (main.cpp:43-57).  The float32 loop also stops
     at its own rounding floor, detected at run time: two consecutive steps
     without 1.25x contraction while |d_omega| < 1e-3 |omega|, or a step whose
@@ -766,6 +831,7 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
                                   lag=1 if loop == "device" else 0)
     n_steps, omega = read_steps_omega(n_steps, state.omega)
     LAST_SOLVE.update(loop=loop, method=method, steps=n_steps, timed=timed)
+    state = replace(state, tiers=tiers, plan=plan)
     if host64:
         omega, vec, extra = host64_polish(p, grid, coeff, state, tol,
                                           omega=omega, **kw)

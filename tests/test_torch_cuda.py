@@ -2,7 +2,9 @@
 K1 and the float32 solves through it (Newton, the shift-invert Arnoldi
 with its polish, and K1 at the window shape of the mesh-sharded banded
 assembly); the dense assembly's kernels P and Q around K1 against the
-torch they replace (inputs, M, solves, launches); K2, K3 and K4 (the
+torch they replace (inputs, M, solves, launches); the quadrature guard's
+kernels G and R (with P) against the guard's torch route, its launches and
+host reads, and the assembly unchanged beside them; K2, K3 and K4 (the
 fused PIC marker pass, in each of its forms, the cluster form's clusters
 of 2, 4 and 8 among them) and the fused PIC run; K5 (the BSR SpMV) and
 the banded solve through it; the driver's three kernel routes from an input dict, each against
@@ -29,8 +31,8 @@ import emme_tpu_torch as et
 from emme_tpu_torch import convert, driver, native
 from emme_tpu_torch.grid import Grid
 from emme_tpu_torch.ops import (adaptive, cuda_adaptive, cuda_assembly,
-                                cuda_kappa, cuda_spmv, kernels, singularity,
-                                sparse)
+                                cuda_guard, cuda_kappa, cuda_spmv, kernels,
+                                singularity, sparse)
 from emme_tpu_torch.parallel import mesh as mesh_mod
 from emme_tpu_torch.solvers import (arnoldi, cuda_pic, eigen, eigen_native,
                                     pic, sparse_eigen)
@@ -257,6 +259,261 @@ def test_assembly_launches_under_profiler(card):
     assert len(names) <= 10, names
     assert sum("assembly_inputs_kernel" in n for n in names) == 1
     assert sum("assembly_place_kernel" in n for n in names) == 1
+
+
+# The guard's cases on the card: (input, npoints, the converged omega, band
+# half-width in blocks of the banded cell or None).  The converged omegas:
+# golden tok128 and tok1024, the stellarator's continuation point, the
+# banded tok8192 cell's guess.
+_GUARD_CASES = {"tok128": ("tokamak", 128, GOLDEN_TOK128, None),
+                "tok1024": ("tokamak", 1024,
+                            complex(-0.8323805740805391, 0.2565467084687576),
+                            None),
+                "stel1024": ("stellarator", 1024, -1.656 + 2.49j, None),
+                "tok8192_band": ("tokamak", 8192, -0.8405 + 0.2529j, 10.0)}
+GUARD_BAD_OMEGA = -6.0 + 0.001j   # outpaces the oscillatory panels
+
+
+def _guard_case(card, case, device=None):
+    name, n, om, band = _GUARD_CASES[case]
+    device = device or card
+    p = et.from_config(_cfg(name, n), dtype=torch.float32, device=device)
+    grid = Grid.create(p.length, n, dtype=torch.float32, device=device)
+    tiers = kernels.tier_thresholds_ij(2.0 * float(p.length) / (n - 1), n)
+    max_dij = None
+    if band is not None:
+        block = sparse_eigen.pick_block(n)
+        max_dij = (sparse_eigen.band_halfwidth(p, grid, block, band) + 1) \
+            * block - 1
+    return p, grid, dict(tiers=tiers, max_dij=max_dij), om
+
+
+# The guard's largest errors on the kernel route against the torch route's.
+# The torch route itself reads them differently on the card and on the
+# CPU (the same sample, float32, the same integrand; only the rounding of
+# the two devices' kernels differs).  Measured on an H100 over the cases of
+# test_guard_kernel_route_matches_torch_route, the card's reading against
+# the CPU's:
+# * max_abs_err, the largest embedded error or tier gap: apart by up to
+#   2.9e-4 of itself (tok128 at its converged omega), and at the stellarator's
+#   converged omega, where every error lies at float32's rounding floor, by
+#   7.6e-8 of 3.6e-7.  The kernels are held within 3e-4 of the torch card
+#   reading plus K1's bar (5e-7 / 5e-6) of max(scale, 1), the rounding
+#   floor of a value of that scale.
+# * max_rel_err, the largest error over |K|: its maximum sits at a pair
+#   whose |K| is at the rounding floor, a ratio of two rounding errors, and
+#   the two readings lie up to 4.64 times apart (stellarator, converged).
+#   The kernels are held within a factor of 5 of the nearer of the two.
+GUARD_ABS_SPREAD = 3e-4
+GUARD_REL_FACTOR = 5.0
+# At GUARD_BAD_OMEGA, where the integrand oscillates fast, K1 itself lies
+# up to 2.6e-6 of max(scale, 1) from its plain version and the torch
+# integrand (H100, the cases below; tok8192_band the largest).  G is held
+# there no further than K1 plus the bar, and under this ceiling whatever
+# K1 reads.
+GUARD_BAD_CEIL = 3e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("at", ["converged", "bad"])
+@pytest.mark.parametrize("case", list(_GUARD_CASES))
+def test_guard_kernel_route_matches_torch_route(card, case, at):
+    """The guard on the kernel route (P, G, R) against the torch route on
+    the card and on the CPU, at the converged omega and at one that fires
+    the flags.  G's values of every set: within K1's bar (5e-7
+    electrostatic, 5e-6 electromagnetic, of max(scale, 1)) of K1 itself on
+    the same inputs (the same node math, summed in another order); from
+    K1's plain version and from the torch integrand (another float32
+    evaluation of the integral: atan, the complex Bessel series) no further
+    than K1 is from each plus that bar, and within the bar of both at the
+    converged omega (at omega = -6 + 0.001i, where the integrand
+    oscillates fast, K1 itself lies up to 2.6e-6 of scale from either; G
+    within ``GUARD_BAD_CEIL`` of both there).  G's
+    embedded errors pair by pair within twice the bar of the torch
+    integrand's plus 2^-18 (32 float32 ulp) of their size: a panel's
+    |K - G| carries the rounding of two float32 sums where a value carries
+    one, and an error sums up to 44 panels' rounded terms.  The reports:
+    the same ``n_sampled`` (4096), ``frac_flagged`` within 0.01, the
+    largest errors within the torch route's own card-to-CPU spread
+    (``GUARD_ABS_SPREAD``, ``GUARD_REL_FACTOR``), and R's report the
+    plain reduction (``guard_report``) of G's own rows read as R reads
+    them (``cuda_guard.pair_values``): the same largest errors to 1e-6 of
+    themselves, the flagged count within 4 of 4096 (R's and torch's complex
+    products round |K| and the threshold apart by a float32 ulp, which
+    moves only a pair at the threshold).  One guard counts once in
+    ``GUARD_ROUTE["kernels"]`` and launches G and R once each."""
+    p, grid, kw, om = _guard_case(card, case)
+    if at == "bad":
+        om = GUARD_BAD_OMEGA
+    ms = (0, 1, 2) if p.electromagnetic else (0,)
+    bar = 5e-6 if p.electromagnetic else 5e-7
+    before, launches = dict(eigen.GUARD_ROUTE), cuda_guard.LAUNCHES
+    got = eigen.quadrature_guard(p, grid, om, **kw)
+    assert eigen.GUARD_ROUTE == {"kernels": before["kernels"] + 1,
+                                 "torch": before["torch"]}
+    assert cuda_guard.LAUNCHES == launches + 2
+    acc, prec = p.integration_accuracy, p.integration_precision
+    torch_card = eigen.guard_report(
+        *eigen.guard_pairs(p, grid, om, chunk=16384, **kw), acc, prec)
+    p_c, grid_c, kw_c, _ = _guard_case(card, case, torch.device("cpu"))
+    torch_cpu = eigen.guard_report(
+        *eigen.guard_pairs(p_c, grid_c, om, chunk=16384, **kw_c), acc, prec)
+    print(f"guard {case} {at}: kernels {got} torch card {torch_card} "
+          f"torch cpu {torch_cpu}")
+    assert got["n_sampled"] == torch_card["n_sampled"] \
+        == torch_cpu["n_sampled"] == 4096
+    assert abs(got["frac_flagged"] - torch_card["frac_flagged"]) <= 0.01
+    nearer = min(abs(np.log(got["max_rel_err"] / t["max_rel_err"]))
+                 for t in (torch_card, torch_cpu))
+    assert nearer <= np.log(GUARD_REL_FACTOR), (got, torch_card, torch_cpu)
+
+    # G's rows against the torch integrand, set by set
+    gplan = eigen._guard_plan(
+        grid.npoints, ms, (4096, 0, tuple(kw["tiers"]), kw["max_dij"]),
+        None, int(p.integration_start_points), str(grid.eta.device))
+    points, scalars = cuda_assembly.point_rows(p, grid)
+    buf = cuda_assembly.inputs(gplan.inputs_plan(points, scalars), om)
+    out = cuda_guard.pairs(gplan, buf)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    iu, ju, groups = eigen.guard_sample(grid.npoints, 4096, 0,
+                                        tuple(kw["tiers"]), kw["max_dij"])
+    quads = []
+    for _idx, spec in groups:
+        quads.append(None)
+        if spec != 1.0:
+            quads.append(kernels.scaled_quad(None, torch.float32, spec))
+    assert len(quads) == len(gplan.tiers)
+    omega = torch.tensor(om, dtype=torch.complex64, device=card)
+    inputs = gplan.inputs_plan(points, scalars)
+    apref = (-1j * (p.q * p.R) / (p.vt * np.sqrt(2.0 * np.pi))).abs()
+    row, scale = 0, 1.0
+    gaps = {"plain": 0.0, "k1": 0.0, "torch": 0.0, "k1_plain": 0.0,
+            "k1_torch": 0.0, "error": 0.0, "error_rel": 0.0}
+    for t, quad in zip(gplan.tiers, quads):
+        rows = out[row:row + t.npairs]
+        row += t.npairs
+        vals = cuda_kappa._finish(p, rows[:, :2 * len(ms)].contiguous(), ms)
+        k1 = cuda_kappa._finish(
+            p, cuda_kappa._launch(*inputs.inputs(buf, t), t.order, ms), ms)
+        plain = cuda_kappa.kappa_pairs_ref(p, grid.eta[t.iu], grid.eta[t.ju],
+                                           omega, ms=ms, quad=quad)
+        want, errs = kernels.kappa_f_tau(p, grid.eta[t.iu], grid.eta[t.ju],
+                                         omega, ms=ms, quad=quad)
+        for k in range(len(ms)):
+            s_k = max(float(want[k].abs().max()), 1.0)
+            scale = max(scale, s_k)
+            err_gap = (apref * rows[:, 2 * len(ms) + k] - errs[k]).abs()
+            d = {"plain": vals[k] - plain[k], "k1": vals[k] - k1[k],
+                 "torch": vals[k] - want[k], "k1_plain": k1[k] - plain[k],
+                 "k1_torch": k1[k] - want[k], "error": err_gap}
+            d = {key: float(v.abs().max()) for key, v in d.items()}
+            d["error_rel"] = float(((err_gap - 2 * bar * s_k).clamp_min(0)
+                                    / errs[k].abs()).nan_to_num().max())
+            for key in gaps:
+                gaps[key] = max(gaps[key], d[key] / (1.0 if key ==
+                                                     "error_rel" else s_k))
+            assert d["k1"] <= bar * s_k, (case, at, k, d, s_k)
+            assert d["plain"] <= d["k1_plain"] + bar * s_k, (case, at, k, d)
+            assert d["torch"] <= d["k1_torch"] + bar * s_k, (case, at, k, d)
+            if at == "converged":
+                assert max(d["plain"], d["torch"]) <= bar * s_k, (case, k, d)
+            else:
+                assert max(d["plain"], d["torch"]) <= GUARD_BAD_CEIL * s_k, \
+                    (case, k, d)
+            assert d["error_rel"] <= 2.0 ** -18, (case, at, k, d, s_k)
+    print(f"guard {case} {at}: G's values and errors, of max(scale, 1): "
+          f"{gaps}")
+    assert abs(got["max_abs_err"] - torch_card["max_abs_err"]) \
+        <= GUARD_ABS_SPREAD * torch_card["max_abs_err"] + bar * scale
+
+    # R against the plain reduction of G's own rows
+    rep = cuda_guard.report(gplan, out, scalars, acc, prec)
+    plain = eigen.guard_report(*cuda_guard.pair_values(gplan, out, scalars),
+                               acc, prec)
+    flagged, max_abs, max_rel = rep.tolist()
+    print(f"guard {case} {at}: R {rep.tolist()} plain on G's rows {plain}")
+    assert abs(flagged - plain["frac_flagged"] * 4096) <= 4
+    assert max_abs == pytest.approx(plain["max_abs_err"], rel=1e-6)
+    assert max_rel == pytest.approx(plain["max_rel_err"], rel=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tok1024", "stel1024"])
+def test_guard_launches_and_host_reads(card, case):
+    """A tok1024 and a stel1024 guard on the card with its solve's
+    assembly plan, as the driver runs it: 10 kernel launches or fewer (P,
+    G and R: the launch calls the profiler sees on the host) and one
+    ``layer.host_read`` span, the report's; K1 not among the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    p, grid, kw, om = _guard_case(card, case)
+    plan = eigen.assembly_plan(p, grid, None, kw["tiers"])
+
+    def guard():
+        return eigen.quadrature_guard(p, grid, om, plan=plan, **kw)
+
+    guard()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        g = guard()
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    on_host = [e.name() for e in events
+               if str(e.device_type()).endswith("CPU")]
+    launches = sum(n.startswith(("cudaLaunch", "cuLaunch")) for n in on_host)
+    reads = on_host.count("layer.host_read")
+    names = [e.name() for e in events
+             if not str(e.device_type()).endswith("CPU")
+             and not e.name().startswith(("Memcpy", "Memset", "layer."))]
+    print(f"guard {case}: {launches} launches, {reads} host reads; device "
+          f"kernels seen {names}")
+    assert 3 <= launches <= 10 and reads == 1
+    assert not any("kappa_pairs_kernel" in n for n in names)
+    assert g["n_sampled"] == 4096
+    with pytest.raises(ValueError, match="assembly plan"):
+        small = eigen.assembly_plan(*_guard_case(card, "tok128")[:2], None,
+                                    None)
+        eigen.quadrature_guard(p, grid, om, plan=small, **kw)
+
+
+@pytest.mark.cuda
+def test_guard_routes_on_the_card_by_dtype_and_k1(card):
+    """On the card the guard takes the kernels only for float32 with K1:
+    float64 parameters, and float32 with K1 turned off, take the torch
+    route, counted in ``GUARD_ROUTE["torch"]`` and launching neither G nor
+    R; their reports keep the sample."""
+    for dtype, fused in ((torch.float64, None), (torch.float32, False)):
+        p = et.from_config(_cfg("tokamak", 128), dtype=dtype, device=card)
+        grid = Grid.create(p.length, 128, dtype=dtype, device=card)
+        before, launches = dict(eigen.GUARD_ROUTE), cuda_guard.LAUNCHES
+        g = eigen.quadrature_guard(p, grid, GOLDEN_TOK128, sample=512,
+                                   fused=fused)
+        assert eigen.GUARD_ROUTE == {"kernels": before["kernels"],
+                                     "torch": before["torch"] + 1}
+        assert cuda_guard.LAUNCHES == launches and g["n_sampled"] == 512
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tok", "stel"])
+def test_assembly_bytes_unchanged_by_the_guard(card, case):
+    """An n = 1024 kernel-route assembly's M is byte-equal before and after
+    the guard's kernels G and R are loaded and run from the same library
+    (K1, P and Q on the assembly's path unchanged), and again after a
+    second guard."""
+    p, grid, coeff, tiers, omega, _bar = _assembly_case(card, case, 1024)
+    plan = eigen.assembly_plan(p, grid, None, tiers)
+
+    def assemble():
+        M = eigen.assemble_matrix(p, grid, coeff, omega, tiers=tiers,
+                                  fused=True, plan=plan)
+        return torch.view_as_real(M).contiguous().view(torch.int32).clone()
+
+    first = assemble()
+    for _ in range(2):
+        eigen.quadrature_guard(p, grid, complex(omega), tiers=tiers,
+                               plan=plan)
+        assert torch.equal(assemble(), first)
 
 
 def _pic_case(card, n, mpc, dc=True, seed=0):

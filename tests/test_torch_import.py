@@ -17,6 +17,7 @@ MODULES = [
     "emme_tpu_torch.ops.singularity", "emme_tpu_torch.ops.quadrature",
     "emme_tpu_torch.ops.bessel", "emme_tpu_torch.ops.kernels",
     "emme_tpu_torch.ops.cuda_kappa", "emme_tpu_torch.ops.cuda_assembly",
+    "emme_tpu_torch.ops.cuda_guard",
     "emme_tpu_torch.ops.linalg",
     "emme_tpu_torch.ops.sparse", "emme_tpu_torch.ops.cuda_spmv",
     "emme_tpu_torch.ops.banded",
