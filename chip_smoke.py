@@ -1484,7 +1484,7 @@ def banded_phases(torch, build_rec, card):
     entry of the kernels line and K1's banded numbers."""
     from emme_tpu_torch import from_config
     from emme_tpu_torch.grid import Grid
-    from emme_tpu_torch.ops import banded, cuda_kappa, cuda_spmv, kernels
+    from emme_tpu_torch.ops import banded, cuda_kappa, cuda_spmv
     from emme_tpu_torch.ops import sparse
     from emme_tpu_torch.ops.singularity import (singularity_coeff_band,
                                                 singularity_coeff_matrix)
@@ -1504,8 +1504,7 @@ def banded_phases(torch, build_rec, card):
     h = se.band_halfwidth(p, grid, bs, BAND_KW["band_deta"])
     de_max = (h + 1) * bs - 1
     cband = singularity_coeff_band(N_BAND, de_max, dtype=f32)
-    tiers = kernels.tier_thresholds_ij(
-        2.0 * float(p.length) / (N_BAND - 1), N_BAND)
+    tiers = eigen.discretization(p, f32)[0]
     seed = torch.tensor(BAND_GUESS, dtype=torch.complex64, device=dev)
     op = se.assemble_bdia(p, grid, cband, seed, h, bs, tiers=tiers,
                           fused=True)
@@ -1528,8 +1527,7 @@ def banded_phases(torch, build_rec, card):
     op1 = se.assemble_bdia(
         p1, g1, singularity_coeff_band(N_TOK, (h1 + 1) * 128 - 1, dtype=f32),
         torch.tensor(GUESS, dtype=torch.complex64, device=dev), h1, 128,
-        tiers=kernels.tier_thresholds_ij(2.0 * float(p1.length) / (N_TOK - 1),
-                                         N_TOK), fused=True)
+        tiers=eigen.discretization(p1, f32)[0], fused=True)
     op1 = sparse.BDIAOperator(data=op1.data.to(torch.complex128),
                               offsets=op1.offsets, n=op1.n, block=op1.block)
     for r in (1, 16):
@@ -1799,8 +1797,7 @@ def dense_phases(torch, card, p, state):
 
     dev = torch.device("cuda")
     f32 = torch.float32
-    n_tiers = len(kernels.tier_thresholds_ij(
-        2.0 * float(p.length) / (p.npoints - 1), p.npoints))
+    n_tiers = len(eigen.discretization(p, f32)[0])
 
     # 5b. dense_certify
     (om, vec, n_steps, _), secs, first_s, by_ms, reads, did = counted_solve(
@@ -1830,8 +1827,7 @@ def dense_phases(torch, card, p, state):
     check(sp.electromagnetic and sp.device.type == "cuda",
           "stellarator: electromagnetic, on the card")
     gs = Grid.create(sp.length, sp.npoints, dtype=f32)
-    tiers_s = kernels.tier_thresholds_ij(
-        2.0 * float(sp.length) / (sp.npoints - 1), sp.npoints)
+    tiers_s = eigen.discretization(sp, f32)[0]
     groups_s = eigen.pair_plan(sp.npoints, tiers_s, str(gs.eta.device))["groups"]
     om_s = torch.tensor(STEL_GUESS, dtype=torch.complex64, device=dev)
     stel_rows = []
@@ -2343,7 +2339,6 @@ def assembly_routes_phase(torch, card):
 
     from emme_tpu_torch import from_config
     from emme_tpu_torch.grid import Grid
-    from emme_tpu_torch.ops import kernels
     from emme_tpu_torch.ops.singularity import singularity_coeff_matrix
     from emme_tpu_torch.solvers import eigen
 
@@ -2369,8 +2364,7 @@ def assembly_routes_phase(torch, card):
         p = from_config(load_cfg(name, N_TOK), dtype=f32)
         grid = Grid.create(p.length, p.npoints, dtype=f32)
         coeff = singularity_coeff_matrix(p.npoints, dtype=f32)
-        tiers = kernels.tier_thresholds_ij(
-            2.0 * float(p.length) / (p.npoints - 1), p.npoints)
+        tiers = eigen.discretization(p, f32)[0]
         plan = eigen.assembly_plan(p, grid, None, tiers)
         omega = torch.tensor(guess, dtype=torch.complex64, device=dev)
         routes = {
@@ -2428,7 +2422,7 @@ def guard_routes_phase(torch, card):
 
     from emme_tpu_torch import from_config
     from emme_tpu_torch.grid import Grid
-    from emme_tpu_torch.ops import cuda_assembly, cuda_guard, kernels
+    from emme_tpu_torch.ops import cuda_assembly, cuda_guard
     from emme_tpu_torch.solvers import eigen
     from portbench.roofline import k1 as k1_roofline
 
@@ -2455,8 +2449,7 @@ def guard_routes_phase(torch, card):
         p_cpu = from_config(cfg, dtype=f32, device=cpu)
         grid_cpu = Grid.create(p_cpu.length, p.npoints, dtype=f32,
                                device=cpu)
-        tiers = kernels.tier_thresholds_ij(
-            2.0 * float(p.length) / (p.npoints - 1), p.npoints)
+        tiers = eigen.discretization(p, f32)[0]
         plan = eigen.assembly_plan(p, grid, None, tiers)
         acc, prec = p.integration_accuracy, p.integration_precision
         ms = tuple(plan.ms)
@@ -2686,9 +2679,9 @@ def mesh_window_phase(torch, card):
     returns K1's entry additions (launches, max_abs_err)."""
     from emme_tpu_torch import from_config
     from emme_tpu_torch.grid import Grid
-    from emme_tpu_torch.ops import cuda_kappa, kernels
+    from emme_tpu_torch.ops import cuda_kappa
     from emme_tpu_torch.ops.singularity import singularity_coeff_band
-    from emme_tpu_torch.solvers import sparse_eigen as se
+    from emme_tpu_torch.solvers import eigen, sparse_eigen as se
 
     f32 = torch.float32
     p = from_config(load_cfg("tokamak", N_BAND), dtype=f32)
@@ -2697,8 +2690,7 @@ def mesh_window_phase(torch, card):
     h = se.band_halfwidth(p, grid, bs, BAND_KW["band_deta"])
     de_max = (h + 1) * bs - 1
     cband = singularity_coeff_band(N_BAND, de_max, dtype=f32)
-    tiers = kernels.tier_thresholds_ij(
-        2.0 * float(p.length) / (N_BAND - 1), N_BAND)
+    tiers = eigen.discretization(p, f32)[0]
     seed = torch.tensor(BAND_GUESS, dtype=torch.complex64, device="cuda")
     kw = dict(tiers=tiers, fused=True)
     whole_ms, whole = timed(lambda: se.assemble_bdia(p, grid, cband, seed, h,
@@ -3057,8 +3049,7 @@ def main():
     check(p.device.type == "cuda", "from_config lands on the card by default")
     grid = Grid.create(p.length, p.npoints, dtype=f32)
     check(grid.eta.is_cuda, "Grid.create lands on the card by default")
-    tiers = kernels.tier_thresholds_ij(2.0 * float(p.length) / (p.npoints - 1),
-                                       p.npoints)
+    tiers = eigen.discretization(p, f32)[0]
     groups = eigen.pair_plan(p.npoints, tiers, str(grid.eta.device))["groups"]
     omega = torch.tensor(GUESS, dtype=torch.complex64, device=dev)
     rows = []

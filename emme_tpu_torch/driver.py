@@ -42,7 +42,6 @@ import torch
 
 from . import params as params_mod
 from .grid import Grid
-from .ops import kernels
 from .ops.sparse import save_bdia_dump
 from .parallel import mesh as mesh_mod
 from .parallel import sharded, spike
@@ -161,40 +160,29 @@ def solve_once_eigen(cfg: dict, omega_guess: complex, matrix_file=None,
             raise ValueError("eigen_backend 'exact' has no mesh form")
     stats: dict = {}
     with section("Iteration"):
-        if backend == "sparse" and mesh is not None:
-            # TraceSecant is the reference iteration; QRSecant routes to the
-            # distributed bordered update, as on the single-device banded
-            # path.  K1's table calls keep their own size (below).
-            fused = cfg.get("fused_assembly")
-            if fused is None:
-                fused = dtype == torch.float32
-            omega, vec, n_steps, M_dump = spike.solve(
-                p, omega_guess, mesh, tol=tol, quad=quad,
-                chunk=None if fused else chunk, host64=host64,
-                method=method, band_deta=cfg.get("band_deta"),
-                block=cfg.get("band_block"), tiered=cfg.get("quad_tiered"),
-                fused=fused, stats=stats)
-        elif backend == "sparse":
-            # block-banded end-to-end path: the dense operator never exists.
-            # ``chunk`` sizes the torch integrand's pair chunks; through K1
-            # the kernel table keeps its own call size (2M pairs): with
-            # 2,048 pairs a call a tok1024 solve made 2,568 launches and
-            # took 6.8 s instead of 0.3 s on an H100
-            fused = cfg.get("fused_assembly")
-            if fused is None:
-                fused = dtype == torch.float32
-            omega, vec, n_steps, state = sparse_eigen.solve(
-                p, omega_guess, tol=tol, quad=quad,
-                chunk=None if fused else chunk, host64=host64,
-                band_deta=cfg.get("band_deta"),
-                block=cfg.get("band_block"),
-                m_krylov=int(cfg.get("m_krylov", 0)),
-                method=method,
-                tiered=cfg.get("quad_tiered"),
-                spmv=cfg.get("spmv_method"),
-                fused=fused,
-                stats=stats)
-            M_dump = state.M
+        if backend == "sparse":
+            # block-banded end-to-end path: the dense operator never exists;
+            # with a mesh the distributed SPIKE Newton solve (QRSecant routes
+            # to the distributed bordered update, as on the single-device
+            # banded path).  ``chunk`` sizes the torch integrand's pair
+            # chunks; through K1 the kernel table keeps its own call size
+            # (2M pairs): with 2,048 pairs a call a tok1024 solve made 2,568
+            # launches and took 6.8 s instead of 0.3 s on an H100
+            fused = eigen.discretization(p, dtype, False,
+                                         cfg.get("fused_assembly"))[1]
+            kw = dict(tol=tol, quad=quad, chunk=None if fused else chunk,
+                      host64=host64, method=method,
+                      band_deta=cfg.get("band_deta"),
+                      block=cfg.get("band_block"),
+                      tiered=cfg.get("quad_tiered"), fused=fused, stats=stats)
+            if mesh is not None:
+                omega, vec, n_steps, M_dump = spike.solve(p, omega_guess,
+                                                          mesh, **kw)
+            else:
+                omega, vec, n_steps, state = sparse_eigen.solve(
+                    p, omega_guess, m_krylov=int(cfg.get("m_krylov", 0)),
+                    spmv=cfg.get("spmv_method"), **kw)
+                M_dump = state.M
         elif backend == "dense" and mesh is not None:
             if method != "TraceSecant":
                 # the column-pivoted QR's pivot sweep is a sequential
@@ -266,13 +254,8 @@ def solve_once_eigen(cfg: dict, omega_guess: complex, matrix_file=None,
             if backend == "dense" and mesh is None:
                 tiers, plan = state.tiers, state.plan
             else:
-                tiered = cfg.get("quad_tiered")
-                if tiered is None:
-                    tiered = dtype == torch.float32
-                tiers = None
-                if tiered:
-                    dxf = 2.0 * host_read(float, p.length) / (p.npoints - 1)
-                    tiers = kernels.tier_thresholds_ij(dxf, p.npoints)
+                tiers = eigen.discretization(p, dtype,
+                                             cfg.get("quad_tiered"))[0]
             max_dij = None
             if backend == "sparse":
                 block, h = stats["block"], stats["h"]

@@ -40,7 +40,7 @@ from ..grid import Grid
 from ..ops import banded, kernels
 from ..ops.singularity import singularity_coeff_band
 from ..ops.sparse import BDIAOperator, bdia_matvec
-from ..solvers import eigen
+from ..solvers import eigen, newton
 from ..solvers import sparse_eigen as se
 from . import mesh as mesh_mod
 from .sharded import bdia_matvec_local
@@ -371,18 +371,19 @@ def solve(p, omega_init, mesh, tol: float | None = None, quad=None,
     """Distributed banded eigensolve: the whole Newton step -- assembly,
     banded factorization, exact trace or bordered bilinears, secant update
     -- runs sharded over the ``rows`` axis.  Seeding, stop rules (the host
-    loop of ``eigen._newton_loop``: tolerance, the float32 floor, the
-    roll-back of a non-finite step) and the null vector are
-    ``sparse_eigen.solve``'s; each step's update is rank 0's, broadcast.
+    loop of ``newton.run``: tolerance, the float32 floor, the roll-back of
+    a non-finite step) and the null vector are ``sparse_eigen.solve``'s;
+    each step's update is rank 0's, broadcast.
 
     ``method``: "TraceSecant" (the reference iteration) or "QRSecant" /
     "BorderedSecant" (both the distributed bordered update, as on the
     single-device banded path).  ``block`` defaults to
     ``pick_block(dim // rows)``; the half-bandwidth must fit one shard.
     ``fused``: kernel tables through K1 (default on for float32; the plain
-    version on CPU tensors).  ``host64``: ``sparse_eigen.
-    host64_polish_banded`` on the gathered operator on rank 0 of ``rows``,
-    broadcast to the others.  ``stats`` gets mesh_rows, block, h, nnz.
+    version on CPU tensors; ``eigen.discretization``).  ``host64``:
+    ``sparse_eigen.host64_polish_banded`` on the gathered operator on rank
+    0 of ``rows``, broadcast to the others.  ``stats`` gets mesh_rows,
+    block, h, nnz.
     Returns (omega, eigenvector, n_steps, M) on every rank, M the gathered
     operator."""
     if method not in ("TraceSecant", "QRSecant", "BorderedSecant"):
@@ -407,14 +408,7 @@ def solve(p, omega_init, mesh, tol: float | None = None, quad=None,
         else (h + 1) * block - 1
     coeff_band = singularity_coeff_band(p.npoints, w_el, dtype=dtype,
                                         device=device)
-    if tiered is None:
-        tiered = dtype == torch.float32
-    tiers = None
-    if tiered:
-        dxf = 2.0 * float(p.length) / (p.npoints - 1)
-        tiers = kernels.tier_thresholds_ij(dxf, p.npoints)
-    if fused is None:
-        fused = dtype == torch.float32
+    tiers, fused = eigen.discretization(p, dtype, tiered, fused)
     cdtype = kernels.complex_dtype(dtype)
     d_fn = sharded_trace_d_omega if method == "TraceSecant" \
         else sharded_bordered_d_omega
@@ -425,22 +419,15 @@ def solve(p, omega_init, mesh, tol: float | None = None, quad=None,
 
     def step(state):
         d_omega = mesh_mod.broadcast(d_fn(state.M, state.dM, mesh), mesh)
-        omega = state.omega + d_omega
-        M_new = assemble(omega)
-        return se.SparseEigenState(omega=omega, d_omega=d_omega, M=M_new,
-                                   dM=se.bdia_secant(M_new, state.M, d_omega))
+        return newton.advance(state, d_omega, assemble, se.bdia_secant)
 
-    om0 = torch.tensor(complex(omega_init), dtype=cdtype, device=device)
-    M_old, M = assemble(0.99 * om0), assemble(om0)
-    state = se.SparseEigenState(omega=om0, d_omega=0.01 * om0, M=M,
-                                dM=se.bdia_secant(M, M_old, 0.01 * om0))
-    eigen.LAST_SOLVE.clear()
-    state, n_steps = eigen._newton_loop(step, state, tol,
-                                        p.iteration_step_limit + 1,
-                                        dtype != torch.float64)
-    n_steps, omega = eigen.read_steps_omega(n_steps, state.omega)
-    eigen.LAST_SOLVE.update(loop="host", method=method, steps=n_steps,
-                            mesh_rows=S)
+    state = newton.seed(
+        assemble,
+        torch.tensor(complex(omega_init), dtype=cdtype, device=device),
+        se.bdia_secant, se.SparseEigenState)
+    state, n_steps, omega = newton.run(
+        step, state, tol, p.iteration_step_limit + 1, dtype != torch.float64,
+        method=method, mesh_rows=S)
     M_full = gather_operator(state.M, mesh)
     if stats is not None:
         stats.update(mesh_rows=S, block=block, h=h, nnz=M_full.nnz)
@@ -449,11 +436,11 @@ def solve(p, omega_init, mesh, tol: float | None = None, quad=None,
         buf = torch.zeros(dim + 2, dtype=torch.complex128, device=device)
         if mesh.row == 0:
             om, v, extra = se.host64_polish_banded(
-                p, grid, coeff_band,
                 se.SparseEigenState(omega=state.omega, d_omega=state.d_omega,
                                     M=M_full, dM=dM_full),
-                tol, h, block, quad=quad, chunk=chunk, tiers=tiers,
-                fused=fused, omega=omega)
+                se.assembler(p, grid, coeff_band, h, block, quad, chunk,
+                             tiers, fused),
+                tol, omega=omega)
             buf[0], buf[1:-1], buf[-1] = om, v, extra
         buf = mesh_mod.broadcast(buf, mesh)
         omega, vec = complex(buf[0].item()), buf[1:-1]

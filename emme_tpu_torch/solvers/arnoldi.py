@@ -32,7 +32,7 @@ from ..ops.singularity import singularity_coeff_matrix
 from ..params import default_device
 from ..parallel import mesh as mesh_mod
 from ..utils.timer import host_read
-from . import eigen
+from . import eigen, newton
 
 def arnoldi_factorization(solve_B, n: int, m_krylov: int,
                           dtype=torch.complex128, device=None,
@@ -173,7 +173,7 @@ def solve(p, sigma, m_krylov: int = 24, newton_polish: int = 3,
         state = eigen.newton_trace_step(p, grid, coeff, state, quad, chunk,
                                         None, fused, plan)
         steps += 1
-        d_omega, omega, re, im = eigen._items(torch.stack([
+        d_omega, omega, re, im = newton.items(torch.stack([
             state.d_omega.abs(), state.omega.abs(), state.omega.real,
             state.omega.imag]))
         if d_omega < tol * omega:

@@ -21,10 +21,10 @@ a fraction of the dense operator.  The dense matrix never exists:
 * ``host64=True`` polishes with complex128 linear algebra on the same
   device (the JAX package's host scipy polish, moved onto the card).
 
-The iteration is the dense solver's loop body (``eigen._newton_loop``, one
-set of stop rules for both): driven from the host with one flag read a step
-(``loop="host"``, the default) or queued with no host wait inside it
-(``loop="device"``).  Peak memory is O(n * bandwidth).
+The iteration is every backend's (``newton.py``, one set of stop rules for
+all): driven from the host with one flag read a step (``loop="host"``, the
+default) or queued with no host wait inside it (``loop="device"``).  Peak
+memory is O(n * bandwidth).
 """
 
 from __future__ import annotations
@@ -33,7 +33,6 @@ import concurrent.futures
 import contextlib
 import warnings
 from dataclasses import dataclass, replace
-from functools import partial
 from typing import Any
 
 import numpy as np
@@ -45,7 +44,7 @@ from ..ops.singularity import SINGULAR_BAND_HALF_WIDTH, singularity_coeff_band
 from ..ops.sparse import BDIAOperator, bdia_matvec, pick_spmv, spmv_route
 from ..params import DYNAMIC_FIELDS
 from ..utils.timer import host_read, span
-from . import eigen
+from . import eigen, newton
 from .arnoldi import arnoldi_factorization, ritz_from_hessenberg
 
 # Default banding cutoff |eta - eta'| <= band_deta (as emme_tpu: 20.0 keeps
@@ -444,21 +443,39 @@ def _null_vector(lu, n: int, dtype, iters: int = 2):
                               iters)
 
 
+def assembler(p, grid: Grid, coeff_band, h: int, block: int, quad=None,
+              chunk=None, tiers=None, fused: bool = False):
+    """``assemble(omega)``: ``assemble_bdia`` with everything but omega
+    bound, the closure the Newton iteration calls (``newton.py``)."""
+    def assemble(omega):
+        return assemble_bdia(p, grid, coeff_band, omega, h, block, quad,
+                             chunk, tiers, fused)
+    return assemble
+
+
+def _trace_delta(state):
+    lu = banded.banded_lu(state.M)
+    Zu = banded.banded_selected_inverse(lu)
+    return -1.0 / banded.banded_trace_product(Zu, state.dM)
+
+
+def _bordered_delta(state):
+    lu = banded.banded_lu(state.M)
+    v = _null_vector(lu, state.M.n, state.M.data.dtype)
+    num = _cdot_bilinear(v, bdia_matvec(state.M, v))
+    den = _cdot_bilinear(v, bdia_matvec(state.dM, v))
+    return -num / den
+
+
 def trace_newton_step(p, grid, coeff_band, state: SparseEigenState,
                       h: int, block: int, quad=None, chunk=None,
                       tiers=None, fused: bool = False):
     """One Newton-trace-secant step on the banded operator
     (solver.h:113-160): d_omega = -1 / tr(M^{-1} dM), with the banded trace
     computed exactly by selected inversion."""
-    with span("linalg.step"):
-        lu = banded.banded_lu(state.M)
-        Zu = banded.banded_selected_inverse(lu)
-        d_omega = -1.0 / banded.banded_trace_product(Zu, state.dM)
-    omega = state.omega + d_omega
-    M_new = assemble_bdia(p, grid, coeff_band, omega, h, block, quad, chunk,
-                          tiers, fused)
-    return SparseEigenState(omega=omega, d_omega=d_omega, M=M_new,
-                            dM=bdia_secant(M_new, state.M, d_omega))
+    return newton.step(state, _trace_delta, assembler(
+        p, grid, coeff_band, h, block, quad, chunk, tiers, fused),
+        bdia_secant)
 
 
 def bordered_newton_step(p, grid, coeff_band, state: SparseEigenState,
@@ -466,33 +483,19 @@ def bordered_newton_step(p, grid, coeff_band, state: SparseEigenState,
                          tiers=None, fused: bool = False):
     """One banded bordered-Newton (QR-secant analogue) step:
     d_omega = -(v^T M v) / (v^T dM v) with v by banded inverse iteration."""
-    with span("linalg.step"):
-        lu = banded.banded_lu(state.M)
-        v = _null_vector(lu, state.M.n, state.M.data.dtype)
-        num = _cdot_bilinear(v, bdia_matvec(state.M, v))
-        den = _cdot_bilinear(v, bdia_matvec(state.dM, v))
-        d_omega = -num / den
-    omega = state.omega + d_omega
-    M_new = assemble_bdia(p, grid, coeff_band, omega, h, block, quad, chunk,
-                          tiers, fused)
-    return SparseEigenState(omega=omega, d_omega=d_omega, M=M_new,
-                            dM=bdia_secant(M_new, state.M, d_omega))
+    return newton.step(state, _bordered_delta, assembler(
+        p, grid, coeff_band, h, block, quad, chunk, tiers, fused),
+        bdia_secant)
 
 
 def init_state(p, grid, coeff_band, omega_init, h, block, quad=None,
                chunk=None, tiers=None, fused: bool = False):
     """Reference ctor seeding (solver.h:396-415), banded: assemble at
-    0.99 w0 and w0, secant derivative from the pair.  ``omega_init`` is a
-    complex 0-d tensor on the grid's device."""
-    omega_old = 0.99 * omega_init
-    d_omega = 0.01 * omega_init
-    M_old = assemble_bdia(p, grid, coeff_band, omega_old, h, block, quad,
-                          chunk, tiers, fused)
-    omega = omega_old + d_omega
-    M = assemble_bdia(p, grid, coeff_band, omega, h, block, quad, chunk,
-                      tiers, fused)
-    return SparseEigenState(omega=omega, d_omega=d_omega, M=M,
-                            dM=bdia_secant(M, M_old, d_omega))
+    0.99 w0 and w0, secant derivative from the pair (``newton.seed``).
+    ``omega_init`` is a complex 0-d tensor on the grid's device."""
+    return newton.seed(assembler(p, grid, coeff_band, h, block, quad, chunk,
+                                 tiers, fused), omega_init, bdia_secant,
+                       SparseEigenState)
 
 
 def arnoldi_estimate(state: SparseEigenState, m_krylov: int,
@@ -513,69 +516,31 @@ def _to_c128(op: BDIAOperator) -> BDIAOperator:
                         offsets=op.offsets, n=op.n, block=op.block)
 
 
-def host64_polish_banded(p, grid, coeff_band, state: SparseEigenState,
-                         tol: float, h: int, block: int, max_steps: int = 8,
-                         quad=None, chunk=None, tiers=None,
-                         fused: bool = False, omega: complex | None = None):
-    """Certification polish: the assembly stays in the working precision
-    (K1 for float32), the linear algebra runs in complex128 on the same
-    device.  The bordered secant of ``emme_tpu``'s
-    ``host64_polish_banded``: v is frozen and refreshed only at the
-    convergence signal (the bilinear zero is quadratically insensitive to
-    v's error), with the same step counting.
-
-    By construction this differs from the JAX package's polish: there the
-    operators go to the host and scipy ``splu`` (which pivots rows)
-    factors them; here the unpivoted banded LU of ``ops/banded.py``
-    factors them on the device.  The start vector of the inverse
-    iteration is the same numpy ``default_rng(0)`` draw.  ``omega``:
-    ``state.omega`` as a Python complex where the caller has read it
-    already.  Returns (omega, v, steps) with v complex128, unit norm, on
-    the device."""
-    dev = grid.eta.device
-    cdtype = kernels.complex_dtype(grid.eta.dtype)
+def host64_polish_banded(state: SparseEigenState, assemble, tol: float,
+                         omega: complex | None = None, max_steps: int = 8):
+    """``newton.polish`` of the banded operator, ``assemble`` an
+    ``assembler``: ``emme_tpu``'s ``host64_polish_banded``, with its step
+    counting and its ``default_rng(0)`` start vector, except that the
+    unpivoted banded LU of ``ops/banded.py`` factors the operators on the
+    device where scipy ``splu`` (which pivots rows) factors them on the
+    host there."""
+    c128 = torch.complex128
+    dev = state.M.data.device
     n = state.M.n
     rng = np.random.default_rng(0)
     v0 = torch.as_tensor(rng.normal(size=n) + 1j * rng.normal(size=n),
-                         dtype=torch.complex128, device=dev)
+                         dtype=c128, device=dev)
 
     def null_vec(A):
         with span("linalg.vector"):
             return _inverse_iteration(banded.banded_lu(A), v0, 3)
 
-    if omega is None:
-        omega = complex(eigen._item(state.omega))
-    A = _to_c128(state.M)
-    dA = _to_c128(state.dM)
-    v = null_vec(A)
-    refreshed = False
-    steps = 0
-    for _ in range(max_steps):
-        den, num = eigen._items(torch.stack([
-            _cdot_bilinear(v, bdia_matvec(dA, v)),
-            _cdot_bilinear(v, bdia_matvec(A, v))]))
-        d_omega = -num / den if den != 0 else complex(0.0)
-        if not (np.isfinite(d_omega.real) and np.isfinite(d_omega.imag)):
-            # already at the certification floor (0/0 secant): zero step,
-            # the refreshed-v pass certifies
-            d_omega = complex(0.0)
-        omega = omega + d_omega
-        steps += 1
-        converged = abs(d_omega) < tol * abs(omega)
-        if converged and refreshed:
-            break
-        A_new = _to_c128(assemble_bdia(
-            p, grid, coeff_band, torch.tensor(omega, dtype=cdtype, device=dev),
-            h, block, quad, chunk, tiers, fused))
-        dA = bdia_secant(A_new, A, torch.tensor(d_omega, dtype=torch.complex128,
-                                                device=dev))
-        A = A_new
-        if converged:
-            v = null_vec(A)
-            refreshed = True
-    if not refreshed:
-        v = null_vec(A)
-    return omega, v, steps
+    return newton.polish(
+        state, tol, assemble, _to_c128,
+        lambda v, A: _cdot_bilinear(v, bdia_matvec(A, v)), null_vec,
+        lambda new, old, d: bdia_secant(
+            new, old, torch.tensor(d, dtype=c128, device=dev)),
+        omega, max_steps)
 
 
 def _params_on(p, device):
@@ -656,13 +621,13 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
     "host" (default: the done flag is read after every step) or "device"
     (no host wait inside the loop, the flag read one step late; it queues
     one masked step, a whole banded assembly, past convergence); both walk
-    the same states (``eigen._newton_loop``).  Blocking host reads are
-    counted in ``eigen.HOST_READS`` and the loop's record is
-    ``eigen.LAST_SOLVE``.
+    the same states (``newton.run``).  Blocking host reads are counted in
+    ``newton.HOST_READS`` and the loop's record is ``newton.LAST_SOLVE``.
     ``fused``: kernel tables through K1 (default on for float32; the plain
     version on CPU tensors).  ``tiered``: coarser panel meshes for far
-    pairs (default on for float32).  The float32 loop also stops at its
-    run-time detected rounding floor, as the dense solve does.
+    pairs (default on for float32; both ``eigen.discretization``).  The
+    float32 loop also stops at its run-time detected rounding floor, as
+    the dense solve does.
     ``host64``: finish with ``host64_polish_banded``.
     """
     tol = tol if tol is not None else 1e-6
@@ -684,45 +649,33 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
         else (h + 1) * block - 1
     coeff_band = singularity_coeff_band(p.npoints, w_el, dtype=dtype,
                                         device=device)
-    if tiered is None:
-        tiered = dtype == torch.float32
-    tiers = None
-    if tiered:
-        dxf = 2.0 * host_read(float, p.length) / (p.npoints - 1)
-        tiers = kernels.tier_thresholds_ij(dxf, p.npoints)
-    if fused is None:
-        fused = dtype == torch.float32
-    if fused and dtype == torch.float64:
-        raise ValueError("fused=True is float32-only (the CUDA kernel K1)")
+    tiers, fused = eigen.discretization(p, dtype, tiered, fused)
     cdtype = kernels.complex_dtype(dtype)
-
-    kw = dict(h=h, block=block, quad=quad, chunk=chunk, tiers=tiers,
-              fused=fused)
-    step = partial(trace_newton_step if method == "TraceSecant"
-                   else bordered_newton_step, p, grid, coeff_band, **kw)
+    assemble = assembler(p, grid, coeff_band, h, block, quad, chunk, tiers,
+                         fused)
+    delta = _trace_delta if method == "TraceSecant" else _bordered_delta
 
     def init(om):
-        return init_state(p, grid, coeff_band,
-                          torch.tensor(om, dtype=cdtype, device=device), **kw)
+        return newton.seed(assemble,
+                           torch.tensor(om, dtype=cdtype, device=device),
+                           bdia_secant, SparseEigenState)
 
     state = init(complex(omega_init))
     if m_krylov:
         with span("linalg.arnoldi"):
             _V, H = arnoldi_estimate(state, m_krylov, spmv)
             omegas, _ = ritz_from_hessenberg(
-                H, complex(eigen._item(state.omega)), m_krylov)
+                H, complex(newton.item(state.omega)), m_krylov)
         est = complex(omegas[0])
         if np.isfinite(est.real) and np.isfinite(est.imag):
             state = init(est)   # re-seed the Newton polish from the estimate
         if stats is not None:
             stats["arnoldi_omega"] = est
 
-    eigen.LAST_SOLVE.clear()
-    state, n_steps = eigen._newton_loop(
-        step, state, tol, p.iteration_step_limit + 1,
-        dtype != torch.float64, lag=1 if loop == "device" else 0)
-    n_steps, omega = eigen.read_steps_omega(n_steps, state.omega)
-    eigen.LAST_SOLVE.update(loop=loop, method=method, steps=n_steps)
+    state, n_steps, omega = newton.run(
+        lambda s: newton.step(s, delta, assemble, bdia_secant), state, tol,
+        p.iteration_step_limit + 1, dtype != torch.float64, loop,
+        method=method)
 
     if stats is not None:
         stats["nnz"] = state.M.nnz
@@ -732,9 +685,8 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
         stats["spmv_route"] = spmv_route(state.M, spmv)
 
     if host64:
-        omega, v, extra = host64_polish_banded(
-            p, grid, coeff_band, state, tol, h, block, quad=quad, chunk=chunk,
-            tiers=tiers, fused=fused, omega=omega)
+        omega, v, extra = host64_polish_banded(state, assemble, tol,
+                                               omega=omega)
         if p.electromagnetic:
             v = deinterleave(v)
         return omega, v, n_steps + extra, state

@@ -62,9 +62,9 @@ def main():
     sys.path.insert(0, str(ROOT))
     from emme_tpu_torch import _build, from_config
     from emme_tpu_torch.grid import Grid
-    from emme_tpu_torch.ops import cuda_spmv, kernels, sparse
+    from emme_tpu_torch.ops import cuda_spmv, sparse
     from emme_tpu_torch.ops.singularity import singularity_coeff_band
-    from emme_tpu_torch.solvers import sparse_eigen as se
+    from emme_tpu_torch.solvers import eigen, sparse_eigen as se
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -84,7 +84,7 @@ def main():
     bs = se.pick_block(N)
     h = se.band_halfwidth(p, grid, bs, BAND_DETA)
     cband = singularity_coeff_band(N, (h + 1) * bs - 1, dtype=f32)
-    tiers = kernels.tier_thresholds_ij(2.0 * float(p.length) / (N - 1), N)
+    tiers = eigen.discretization(p, f32)[0]
     op = se.assemble_bdia(
         p, grid, cband, torch.tensor(SEED_OMEGA, dtype=torch.complex64,
                                      device=dev), h, bs, tiers=tiers,

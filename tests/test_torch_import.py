@@ -25,7 +25,7 @@ MODULES = [
     "emme_tpu_torch.solvers.eigen", "emme_tpu_torch.solvers.pic",
     "emme_tpu_torch.solvers.cuda_pic", "emme_tpu_torch.solvers.arnoldi",
     "emme_tpu_torch.solvers.sparse_eigen",
-    "emme_tpu_torch.solvers.eigen_native",
+    "emme_tpu_torch.solvers.eigen_native", "emme_tpu_torch.solvers.newton",
     "emme_tpu_torch.parallel", "emme_tpu_torch.parallel.mesh",
     "emme_tpu_torch.parallel.sharded", "emme_tpu_torch.parallel.spike",
     "emme_tpu_torch.tools", "emme_tpu_torch.tools.pic_bench",
@@ -87,6 +87,10 @@ ENTRY_POINTS = {
     "emme_tpu_torch.native": ("phys_from_params", "g_bi", "kappa_batch",
                               "assemble", "available", "build"),
     "emme_tpu_torch.solvers.eigen_native": ("solve",),
+    "emme_tpu_torch.solvers.newton": ("seed", "advance", "step", "run",
+                                      "polish", "item", "items"),
+    "emme_tpu_torch.solvers.eigen": ("discretization", "assembler",
+                                     "secant"),
     "emme_tpu_torch.ops.cuda_adaptive": ("integrate", "build", "flop_count"),
     "emme_tpu_torch.ops.adaptive": ("integrate_ref", "bessel_i01", "g_eta",
                                     "bi_eta", "pair_rows", "kappa_electron"),

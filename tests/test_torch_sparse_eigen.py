@@ -20,7 +20,7 @@ from emme_tpu_torch import convert
 from emme_tpu_torch.grid import Grid
 from emme_tpu_torch.ops import cuda_kappa, cuda_spmv, kernels
 from emme_tpu_torch.ops.singularity import singularity_coeff_band
-from emme_tpu_torch.solvers import arnoldi, eigen, sparse_eigen as se
+from emme_tpu_torch.solvers import arnoldi, newton, sparse_eigen as se
 
 torch.set_num_threads(2)
 
@@ -254,7 +254,7 @@ def test_solve_shifts_and_argument_checks(tokamak_cfg):
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_device_loop_matches_host(dtype, method, tokamak_cfg):
     """loop="device" walks the host loop's states through the one loop body
-    the dense solver has: equal steps, omega and vector at tok32, both
+    every backend has (``newton.py``): equal steps, omega and vector at tok32, both
     methods, float64 and float32 (a tolerance under the float32 floor ends
     through the stagnation rule in both).  The host loop reads the flag
     every step, the device loop nothing inside the loop; after it each
@@ -266,10 +266,10 @@ def test_device_loop_matches_host(dtype, method, tokamak_cfg):
               method=method)
     out, reads, did = {}, {}, {}
     for loop in ("host", "device"):
-        eigen.HOST_READS.update(blocking=0, flag_polls=0)
+        newton.HOST_READS.update(blocking=0, flag_polls=0)
         out[loop] = se.solve(p, GUESS, loop=loop, **kw)
-        reads[loop] = dict(eigen.HOST_READS)
-        did[loop] = dict(eigen.LAST_SOLVE)
+        reads[loop] = dict(newton.HOST_READS)
+        did[loop] = dict(newton.LAST_SOLVE)
     (om_h, vec_h, n_h, st_h), (om_d, vec_d, n_d, st_d) = out["host"], \
         out["device"]
     assert n_d == n_h and n_h < p.iteration_step_limit
@@ -286,9 +286,9 @@ def test_device_loop_matches_host(dtype, method, tokamak_cfg):
     assert reads["device"]["blocking"] == 1
     assert reads["device"]["flag_polls"] <= n_d + 1
     # the default is the host loop
-    eigen.HOST_READS.update(blocking=0, flag_polls=0)
+    newton.HOST_READS.update(blocking=0, flag_polls=0)
     assert se.solve(p, GUESS, **kw)[2] == n_h
-    assert eigen.LAST_SOLVE["loop"] == "host"
+    assert newton.LAST_SOLVE["loop"] == "host"
 
 
 def test_solve_shifts_survives_keyerror(tokamak_cfg, monkeypatch):
