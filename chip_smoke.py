@@ -250,7 +250,9 @@ check exits non-zero:
    stel1024 from -1.656+2.490j within 1e-8 of
    tests/goldens/stellarator_sequence.json's stel1024 in 3 steps, tok1024
    from -0.8+0.25j within 1e-8 of golden tok1024 in 5 steps; the seconds of
-   each, and phase 5b's certified float32 omega's distance to this one.
+   each, and phase 5b's certified float32 omega's distance to this one;
+   the null vector (one route count, inverse iteration on M^H M) within
+   1e-11 up to a phase of the right singular vector of the card's SVD.
 
 The kernels JSON gives every kernel its bound: the larger of the bytes it
 must move (each input read once, each output written once; for K3, whose
@@ -2750,7 +2752,7 @@ def native_phases(torch, card, certified_omega):
     reference-exact solves through the port's modules; returns N1's entry of
     the kernels JSON."""
     from emme_tpu_torch import from_config, native
-    from emme_tpu_torch.ops import adaptive, cuda_adaptive
+    from emme_tpu_torch.ops import adaptive, cuda_adaptive, linalg
     from emme_tpu_torch.ops.singularity import singularity_coeff_matrix
     from emme_tpu_torch.solvers import eigen_native
 
@@ -2824,6 +2826,7 @@ def native_phases(torch, card, certified_omega):
                               ("tokamak", GUESS, GOLDEN_TOK1024)):
         p = from_config(load_cfg(name, N_TOK))
         cuda_adaptive.LAUNCHES = 0
+        singular = linalg.NULL_VECTOR_ROUTE["singular"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         om, vec, n_steps, M = eigen_native.solve(p, om0, tol=1e-6)
@@ -2834,6 +2837,10 @@ def native_phases(torch, card, certified_omega):
         rel = abs(om - golden) / abs(golden)
         residual = float(torch.linalg.vector_norm(M @ vec)
                          / torch.linalg.matrix_norm(M))
+        # the null vector (inverse iteration on M^H M) against the SVD's
+        svd_vec = torch.linalg.svd(M)[2][-1].conj()
+        c = torch.vdot(svd_vec, vec)
+        svd_dist = float(torch.linalg.vector_norm(vec - c / c.abs() * svd_vec))
         slices[name] = {"omega": [om.real, om.imag], "rel_err": rel,
                         "steps": n_steps, "seconds": secs,
                         "launches": n_launch}
@@ -2845,13 +2852,17 @@ def native_phases(torch, card, certified_omega):
              f"{N_TOK} eigen_native.solve float64", omega=[om.real, om.imag],
              golden=[golden.real, golden.imag], rel_err=rel, steps=n_steps,
              seconds=secs, launches=n_launch, residual=residual,
-             dim=M.shape[0], **extra, card=card)
+             svd_vector_distance=svd_dist, dim=M.shape[0], **extra, card=card)
         check(M.is_cuda and vec.is_cuda and M.dtype == torch.complex128,
               f"{name}: M and vector complex128 on the card")
         check(bool(torch.isfinite(M).all()) and bool(torch.isfinite(vec).all()),
               f"{name}: finite M and vector")
         check(n_launch == 2 + n_steps,
               f"{name}: N1 launches {n_launch} == 2 + {n_steps} steps")
+        check(linalg.NULL_VECTOR_ROUTE["singular"] == singular + 1,
+              f"{name}: one null vector by inverse iteration on M^H M")
+        check(svd_dist <= 1e-11,
+              f"{name}: null vector {svd_dist:.3e} <= 1e-11 from the SVD's")
         check(n_steps == NATIVE_STEPS[name],
               f"{name}: {n_steps} steps == {NATIVE_STEPS[name]}")
         check(rel < NATIVE_SOLVE_BAR,

@@ -137,28 +137,43 @@ def qr_secant_delta(M, dM):
     return -R[n - 1, n - 1] / u[n - 1]
 
 
+NULL_VECTOR_ROUTE = {"svd": 0, "inverse": 0, "singular": 0}
+
+
 def null_space_vector(M, method: str | None = None):
     """Null-space (least-singular right-singular) vector of M, conjugated to
     match the reference's nullSpace() output convention (solver.h:58-112).
 
-    Methods:
+    Methods, each call counted in ``NULL_VECTOR_ROUTE``:
       * ``svd`` (default for a CPU tensor): exact reference semantics.
       * ``inverse`` (default for a CUDA tensor, as ``emme_tpu`` picks it on
         its accelerator): inverse iteration -- one complex LU and two solves
         amplify the null direction by 1/sigma_min, from ``emme_tpu``'s start
-        vector 1 + 0.3i in every entry, normalised each sweep.
+        vector 1 + 0.3i in every entry, normalised each sweep.  This is the
+        eigenvector of M's least eigenvalue, not the singular vector.
+      * ``singular``: the SVD's vector without the SVD -- the same LU and
+        start, and two sweeps of inverse iteration on M^H M, each an adjoint
+        solve then a solve (M^{-1} M^{-H}: the right singular vector;
+        the other order gives the left one).  A sweep shrinks the other
+        directions by (sigma_min / sigma_2)^2, so near a root of det M two
+        sweeps reach the SVD's vector to rounding.  No host read.
     """
     if method is None:
         method = "inverse" if M.is_cuda else "svd"
+    if method not in NULL_VECTOR_ROUTE:
+        raise ValueError(f"method must be one of {tuple(NULL_VECTOR_ROUTE)}, "
+                         f"got {method!r}")
+    NULL_VECTOR_ROUTE[method] += 1
     if method == "svd":
         _, _, vh = torch.linalg.svd(M)
         return vh[-1, :].conj().resolve_conj()
-    if method != "inverse":
-        raise ValueError(f"method must be 'svd' or 'inverse', got {method!r}")
     lu, piv, _info = torch.linalg.lu_factor_ex(M, check_errors=False)
     z = torch.full((M.shape[-1], 1), 1.0 + 0.3j, dtype=M.dtype,
                    device=M.device)
     for _ in range(2):
+        if method == "singular":
+            z = torch.linalg.lu_solve(lu, piv, z, adjoint=True)
+            z = z / torch.linalg.vector_norm(z)
         z = torch.linalg.lu_solve(lu, piv, z)
         z = z / torch.linalg.vector_norm(z)
     return z[:, 0]

@@ -5,9 +5,11 @@ iteration (TraceSecant, solver.h:113-160; QRSecant, solver.h:210-383) on
 ``native.assemble``, whose integrals run through kernel N1 on the card and
 its plain version on the CPU, with the linear algebra of ``ops/linalg`` in
 complex128 on the same device.  It opens the dense path's spans: each
-step's trace solve or QR step under ``layer.linalg.step``, the SVD null
-vector under ``layer.linalg.vector``, and each step's read of d_omega
-under ``layer.host_read`` (``native.assemble`` opens the assembly's).
+step's trace solve or QR step under ``layer.linalg.step``, the null vector
+(one LU of the final M and inverse iteration on M^H M: the SVD's vector
+without the SVD) under ``layer.linalg.vector``, and each step's read of
+d_omega under ``layer.host_read`` (``native.assemble`` opens the
+assembly's).
 """
 
 from __future__ import annotations
@@ -61,5 +63,5 @@ def solve(p, omega_init: complex, tol: float = 1e-6, callback=None,
             break
 
     with span("linalg.vector"):
-        vec = linalg.null_space_vector(M, "svd")
+        vec = linalg.null_space_vector(M, "singular")
     return omega, vec, n_steps, M

@@ -32,7 +32,7 @@ from emme_tpu_torch import convert, driver, native
 from emme_tpu_torch.grid import Grid
 from emme_tpu_torch.ops import (adaptive, cuda_adaptive, cuda_assembly,
                                 cuda_guard, cuda_kappa, cuda_spmv, kernels,
-                                singularity, sparse)
+                                linalg, singularity, sparse)
 from emme_tpu_torch.parallel import mesh as mesh_mod
 from emme_tpu_torch.solvers import (arnoldi, cuda_pic, eigen, eigen_native,
                                     pic, sparse_eigen)
@@ -1311,21 +1311,40 @@ def test_native_solve_tok32_on_card(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", ["TraceSecant", "QRSecant"])
-def test_exact_backend_tok128_on_card(card, method):
+def test_exact_backend_tok128_on_card(card, method, monkeypatch):
     """The driver's exact backend on the card at tok128: every assembly
-    one N1 launch, the golden tok128 omega at the engine's 1e-9, and the
-    eigenpair judged on 16 seeded rows of the benchmark's plain adaptive
-    reference, computed on the card: the backward error and the omega
-    shift the rows ask for at the float64 floor of the Newton loop's last
-    step (1e-14 on the CPU)."""
+    one N1 launch, the golden tok128 omega at the engine's 1e-9, the null
+    vector (one LU and inverse iteration on M^H M, counted once) within
+    1e-11 up to a phase of the right singular vector of the card's SVD of
+    the final M, and the eigenpair judged on 16 seeded rows of the
+    benchmark's plain adaptive reference, computed on the card: the
+    backward error and the omega shift the rows ask for at the float64
+    floor of the Newton loop's last step (1e-14 on the CPU)."""
     from portbench.reference import adaptive as ref
     cfg = dict(_cfg("tokamak", 128), eigen_backend="exact",
                iteration_method=method)
+    seen = []
+    nsv = linalg.null_space_vector
+
+    def recorded(M, method=None):
+        v = nsv(M, method)
+        seen.append((method, M, v))
+        return v
+    monkeypatch.setattr(linalg, "null_space_vector", recorded)
     before = cuda_adaptive.LAUNCHES
+    routes = dict(linalg.NULL_VECTOR_ROUTE)
     res, om = driver.solve_once_eigen(cfg, -0.8 + 0.25j,
                                       dtype=torch.float64)
     steps = res["iteration_steps"]
     assert cuda_adaptive.LAUNCHES - before == 2 + steps
+    assert linalg.NULL_VECTOR_ROUTE == dict(
+        routes, singular=routes["singular"] + 1)
+    (route, M, vec), = seen
+    assert route == "singular" and M.is_cuda and vec.is_cuda
+    ref_vec = torch.linalg.svd(M)[2][-1].conj()
+    c = torch.vdot(ref_vec, vec)
+    assert float(torch.linalg.vector_norm(vec - c / c.abs() * ref_vec)) \
+        <= 1e-11
     assert abs(om - GOLDEN_TOK128) / abs(GOLDEN_TOK128) < 1e-9
     assert res["quadrature_guard"]["run"] is False
     v = np.array(res["eigenvector"])

@@ -120,6 +120,39 @@ def test_null_space_vector_inverse(goldens_dir):
         linalg.null_space_vector(Mt, method="qr")
 
 
+def _phase_dist(a, b):
+    """min over theta of ||a - e^{i theta} b|| for unit vectors a, b."""
+    c = np.vdot(b, a)
+    return float(np.linalg.norm(a - (c / abs(c)) * b))
+
+
+def test_null_space_vector_singular(goldens_dir):
+    """Inverse iteration on M^H M on the same near-singular operator: the
+    SVD's vector to 1e-12 up to a phase, a unit vector, ||M v|| at
+    sigma_min to 1e-9 less the rounding of forming M v (a few ulps of
+    ||M||; the SVD's own vector reads 0.34 of one); one count a call; an
+    unknown method raises and counts nothing."""
+    M = _matrix("tok32", goldens_dir)
+    U, sv, Vh = np.linalg.svd(M)
+    Mt = torch.as_tensor(M - (1.0 - 1e-9) * sv[-1] *
+                         np.outer(U[:, -1], Vh[-1]))
+    before = dict(linalg.NULL_VECTOR_ROUTE)
+    got = linalg.null_space_vector(Mt, method="singular")
+    assert linalg.NULL_VECTOR_ROUTE == dict(before, singular=before[
+        "singular"] + 1)
+    svd = linalg.null_space_vector(Mt, method="svd").numpy()
+    assert _phase_dist(got.numpy(), svd) <= 1e-12
+    assert abs(float(torch.linalg.vector_norm(got)) - 1.0) <= 1e-12
+    s = torch.linalg.svdvals(Mt)
+    eps = np.finfo(np.float64).eps
+    assert float(torch.linalg.vector_norm(Mt @ got)) \
+        <= (1 + 1e-9) * float(s[-1]) + 4 * eps * float(s[0])
+    before = dict(linalg.NULL_VECTOR_ROUTE)
+    with pytest.raises(ValueError):
+        linalg.null_space_vector(Mt, method="qr")
+    assert linalg.NULL_VECTOR_ROUTE == before
+
+
 @pytest.fixture(scope="module")
 def tok32(tokamak_cfg):
     cfg = dict(tokamak_cfg, npoints=32)

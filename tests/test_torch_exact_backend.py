@@ -104,7 +104,8 @@ def test_exact_backend_from_an_input_file(tmp_path, cfg, golden_eigenvalues):
 
 def test_exact_eigenvector_is_the_dense_backends(cfg, monkeypatch):
     """Both backends take the null vector through
-    ``linalg.null_space_vector`` (the SVD on the CPU), in the reference's
+    ``linalg.null_space_vector`` (the exact one by inverse iteration on
+    M^H M, the dense one by its CPU default, the SVD), in the reference's
     conjugated convention: the exact and the dense float64 eigenvectors
     agree up to a phase, to the dense backend's quadrature error."""
     calls = []
@@ -118,7 +119,7 @@ def test_exact_eigenvector_is_the_dense_backends(cfg, monkeypatch):
     dense, _ = driver.solve_once_eigen(dict(cfg, eigen_backend="dense"),
                                        GUESS, dtype=torch.float64,
                                        device="cpu")
-    assert calls == ["svd", None]
+    assert calls == ["singular", None]
     a, b = (np.array(r["eigenvector"]) for r in (res, dense))
     a, b = a[:, 0] + 1j * a[:, 1], b[:, 0] + 1j * b[:, 1]
     assert abs(np.linalg.norm(a) - 1.0) < 1e-12

@@ -19,7 +19,7 @@ import emme_tpu
 import emme_tpu.native
 import emme_tpu_torch as et
 from emme_tpu_torch import native
-from emme_tpu_torch.ops import adaptive, cuda_adaptive
+from emme_tpu_torch.ops import adaptive, cuda_adaptive, linalg
 from emme_tpu_torch.ops.singularity import singularity_coeff_matrix
 from emme_tpu_torch.solvers import eigen_native
 
@@ -224,6 +224,28 @@ def test_solve_tok32_vs_golden(goldens_dir, golden_eigenvalues):
     assert abs(float(torch.linalg.vector_norm(vec)) - 1.0) < 1e-12
     smin = float(torch.linalg.svdvals(M)[-1])
     assert float(torch.linalg.vector_norm(M @ vec)) < 1e-8 + 2 * smin
+
+
+@pytest.mark.parametrize("npoints", [32, 128])
+def test_solve_null_vector_is_the_svds(goldens_dir, npoints):
+    """The solve's null vector, one LU and inverse iteration on M^H M at
+    the converged operator, is the SVD's right singular vector of the
+    returned M: within 1e-12 of it up to a phase, a unit vector, ||M v|| at
+    sigma_min to 1e-9 less a few ulps of ||M|| (the rounding of forming
+    M v); the route counted once."""
+    p, _ = _params(goldens_dir, "tokamak", npoints=npoints)
+    before = dict(linalg.NULL_VECTOR_ROUTE)
+    _, vec, _, M = eigen_native.solve(p, GUESS, tol=1e-6)
+    assert linalg.NULL_VECTOR_ROUTE == dict(
+        before, singular=before["singular"] + 1)
+    _, s, vh = torch.linalg.svd(M)
+    ref = vh[-1].conj()
+    c = torch.vdot(ref, vec)
+    assert float(torch.linalg.vector_norm(vec - c / c.abs() * ref)) <= 1e-12
+    assert abs(float(torch.linalg.vector_norm(vec)) - 1.0) <= 1e-12
+    eps = torch.finfo(torch.float64).eps
+    assert float(torch.linalg.vector_norm(M @ vec)) \
+        <= (1 + 1e-9) * float(s[-1]) + 4 * eps * float(s[0])
 
 
 @pytest.mark.parametrize("method", ["TraceSecant", "QRSecant"])
