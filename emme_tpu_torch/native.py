@@ -11,7 +11,9 @@ return complex128 tensors on ``p.device``.  ``n_threads`` stays in the
 signatures for parity with ``emme_tpu.native`` and is not used: the card
 runs the integrals in N1's warps.  ``assemble`` opens the dense path's
 spans: ``layer.assembly.pairs`` around the integrals and the kernels made
-of them, ``layer.assembly.place`` around the writes into M.
+of them, ``layer.assembly.place`` around the writes into M; an
+electromagnetic operator's electron closed forms and A_par diagonal open
+``layer.assembly.electron`` between them.
 """
 
 from __future__ import annotations
@@ -101,10 +103,12 @@ def assemble(p, coeff, omega, n_threads=None):
             rows, m, adaptive.scalars(ph, omega))
         npairs = iu.numel()
         k = adaptive.ion_prefactor(ph, vals).reshape(npairs, -1)
-        if em:
+    if em:
+        with span("assembly.electron"):
             ke = adaptive.kappa_electron(ph, m.reshape(npairs, 3)[:, 1:],
                                          grid[iu, None], grid[ju, None],
                                          omega)
+            bi = adaptive.bi_eta(ph, grid)
     dx = 2.0 * ph.length / (n - 1)
     with span("assembly.place"):
         coeff = _f64(coeff, dev)
@@ -124,6 +128,6 @@ def assemble(p, coeff, omega, n_threads=None):
             M[ju + n, iu] = u
             M[iu + n, ju + n] = d
             M[ju + n, iu + n] = d
-            M[diag + n, diag + n] = ((2.0 * ph.tau) / ph.beta_e
-                                     * adaptive.bi_eta(ph, grid)).to(M.dtype)
+            M[diag + n, diag + n] = ((2.0 * ph.tau) / ph.beta_e * bi).to(
+                M.dtype)
     return M

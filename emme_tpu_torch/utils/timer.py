@@ -33,6 +33,7 @@ SPANS = (
     "layer.driver.guard",      # driver.solve_once_eigen: the quadrature guard
     "layer.assembly.pairs",    # an assembly's kernel values (K1 and around)
     "layer.assembly.place",    # writing them into the operator
+    "layer.assembly.electron",  # exact EM: electron closed forms, A_par diag
     "layer.linalg.step",       # a Newton step's linear algebra
     "layer.linalg.vector",     # the null vector after the loop
     "layer.linalg.arnoldi",    # the banded shift-invert Arnoldi stage

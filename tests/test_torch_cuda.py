@@ -1354,6 +1354,30 @@ def test_exact_backend_tok128_on_card(card, method, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_exact_backend_stel128_on_card(card):
+    """The driver's exact backend on the card at stel128 (electromagnetic,
+    G15K31, three moments, a 256 x 256 operator): the golden stel128 omega
+    at the engine's 1e-9, a 2N eigenvector, and the eigenpair judged on 16
+    seeded rows of the plain adaptive electromagnetic reference computed on
+    the card, 8 of the phi block and 8 of the A_par block: the backward
+    error and the omega shift the rows ask for at the float64 floor of the
+    Newton loop's last step."""
+    from portbench.reference import adaptive_em as ref
+    cfg = dict(_cfg("stellarator", 128), eigen_backend="exact")
+    res, om = driver.solve_once_eigen(cfg, complex(*cfg["initial_guess"]),
+                                      dtype=torch.float64)
+    gold = complex(-0.8555738574280805, -0.3201251291856798)
+    assert abs(om - gold) / abs(gold) < 1e-9
+    v = np.array(res["eigenvector"])
+    assert v.shape == (256, 2)
+    rng = np.random.default_rng(128)
+    rows = np.concatenate([rng.choice(128, 8, replace=False),
+                           128 + rng.choice(128, 8, replace=False)])
+    got = ref.row_check(cfg, om, v[:, 0] + 1j * v[:, 1], rows, device=card)
+    assert got["residual"] < 1e-10 and got["omega_gap"] < 1e-9, got
+
+
+@pytest.mark.cuda
 def test_adaptive_kernel_refuses_a_deep_stack(card):
     """A depth limit past the shared-memory stack raises; nothing launches
     and nothing falls back."""

@@ -165,6 +165,28 @@ def test_exact_backend_opens_the_dense_paths_spans(method):
     assert not _nested_in_own_name(spans)
 
 
+@pytest.mark.parametrize("conf", ["stellarator", "tokamak"])
+def test_exact_backend_electron_span(conf):
+    """``layer.assembly.electron``: once an assembly of the electromagnetic
+    exact solve (stel32, from near its root), between the assembly's pairs
+    and place spans; never on the electrostatic one (tok32)."""
+    guess = {"stellarator": complex(-0.474, 0.627), "tokamak": GUESS}[conf]
+    cfg = _input(f"{conf}.json", npoints=32, eigen_backend="exact")
+    (res, _), spans = _traced(lambda: driver.solve_once_eigen(
+        cfg, guess, dtype=torch.float64, device="cpu"))
+    names = collections.Counter(name for name, _, _ in spans)
+    assemblies = res["iteration_steps"] + 2
+    assert names["layer.assembly.pairs"] == assemblies
+    assert names["layer.assembly.electron"] == (
+        assemblies if conf == "stellarator" else 0)
+    order = [n for n, _, _ in spans if n.startswith("layer.assembly.")]
+    if conf == "stellarator":
+        assert order == ["layer.assembly.pairs", "layer.assembly.electron",
+                         "layer.assembly.place"] * assemblies
+    assert set(names) <= set(SPANS)
+    assert not _nested_in_own_name(spans)
+
+
 @pytest.mark.parametrize("loop", ["host", "device"])
 def test_every_host_read_is_a_span(loop):
     """``layer.host_read`` spans a solve's reads: each counted blocking read
