@@ -240,7 +240,10 @@ check exits non-zero:
    limit 20); no integral split differently (panel counts) or with other
    Miller steps, and max abs within 1e-12 of the largest value; max abs,
    median, flips, the kernel's ms (median of 3) and the plain version's,
-   the bound, and native.assemble's ms; N1's launch shape (slots a warp:
+   the bound, and native.assemble's ms without a plan and with one made
+   beforehand (native.assembly_plan), the two M equal bit for bit, the
+   plan's N1 rows equal to adaptive.pair_rows of the pairs' ends bit for
+   bit, and native.ASSEMBLY_ROUTE; N1's launch shape (slots a warp:
    integrals a warp holds at a time, blocks of the persistent grid,
    registers a thread) and SHA-256 digests of its outputs (the values with
    -0 read as +0, the panel counts, the Miller steps), as
@@ -252,7 +255,9 @@ check exits non-zero:
    from -0.8+0.25j within 1e-8 of golden tok1024 in 5 steps; the seconds of
    each, and phase 5b's certified float32 omega's distance to this one;
    the null vector (one route count, inverse iteration on M^H M) within
-   1e-11 up to a phase of the right singular vector of the card's SVD.
+   1e-11 up to a phase of the right singular vector of the card's SVD;
+   one assembly plan a solve, every assembly planned
+   (native.ASSEMBLY_ROUTE).
 
 The kernels JSON gives every kernel its bound: the larger of the bytes it
 must move (each input read once, each output written once; for K3, whose
@@ -2764,7 +2769,14 @@ def native_phases(torch, card, certified_omega):
               f"{name}: float64 on the card by default")
         # every integral of one assembly, as eigen_native.solve launches it
         iu, ju = torch.triu_indices(N_TOK, N_TOK, 1, device=p.device)
-        rows, m, _, ph = native.pair_integrals(p, iu, ju)
+        rows, m, grid, ph = native.pair_integrals(p, iu, ju)
+        k = 3 if p.electromagnetic else 1
+        ends = adaptive.pair_rows(ph, grid[iu].repeat_interleave(k),
+                                  grid[ju].repeat_interleave(k))
+        check(torch.equal(rows.view(torch.int64), ends.view(torch.int64)),
+              f"{name}: N1's rows, g and b_i gathered from the grid, are "
+              f"pair_rows' of the pairs' ends bit for bit")
+        del ends
         sc = adaptive.scalars(ph, om)
         k_ms, (got, panels, miller) = timed(
             lambda: cuda_adaptive.integrate(rows, m, sc), torch)
@@ -2798,7 +2810,18 @@ def native_phases(torch, card, certified_omega):
         asm_ms, M = timed(lambda: native.assemble(p, coeff, om), torch)
         check(M.is_cuda and M.dtype == torch.complex128
               and bool(torch.isfinite(M).all()), f"{name}: assembly finite")
-        del M, rows, m, got, ref
+        plan = native.assembly_plan(p, coeff)
+        planned_ms, M_plan = timed(
+            lambda: native.assemble(p, coeff, om, plan=plan), torch)
+        check(torch.equal(torch.view_as_real(M_plan).view(torch.int64),
+                          torch.view_as_real(M).view(torch.int64)),
+              f"{name}: the planned assembly's M is the unplanned one's, "
+              f"bit for bit")
+        check(plan.rows.shape == rows.shape and torch.equal(
+            plan.rows.view(torch.int64), rows.view(torch.int64))
+              and torch.equal(plan.m, m),
+              f"{name}: the plan's N1 rows and moments are pair_integrals'")
+        del M, M_plan, plan, rows, m, got, ref
         cmp[name] = {
             "integrals": int(panels.numel()), "max_abs_err": max_abs,
             "scale": scale, "max_rel": float(rel.max()),
@@ -2811,7 +2834,10 @@ def native_phases(torch, card, certified_omega):
             "miller_steps": int(miller.sum()),
             "kernel_ms": k_ms, "plain_ms": plain_ms, **bnd,
             "share_of_bound": bnd["bound_ms"] / k_ms,
-            "native_assemble_ms": asm_ms, "slots": shape["slots"],
+            "native_assemble_ms": asm_ms,
+            "native_assemble_planned_ms": planned_ms,
+            "assembly_route": dict(native.ASSEMBLY_ROUTE),
+            "slots": shape["slots"],
             "blocks": shape["blocks"], "registers": shape["registers"],
             "local_bytes": shape["local_bytes"], **digests}
         emit("native_vs_plain", case=f"{'tok' if name == 'tokamak' else 'stel'}"
@@ -2827,6 +2853,7 @@ def native_phases(torch, card, certified_omega):
         p = from_config(load_cfg(name, N_TOK))
         cuda_adaptive.LAUNCHES = 0
         singular = linalg.NULL_VECTOR_ROUTE["singular"]
+        route = dict(native.ASSEMBLY_ROUTE)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         om, vec, n_steps, M = eigen_native.solve(p, om0, tol=1e-6)
@@ -2852,7 +2879,8 @@ def native_phases(torch, card, certified_omega):
              f"{N_TOK} eigen_native.solve float64", omega=[om.real, om.imag],
              golden=[golden.real, golden.imag], rel_err=rel, steps=n_steps,
              seconds=secs, launches=n_launch, residual=residual,
-             svd_vector_distance=svd_dist, dim=M.shape[0], **extra, card=card)
+             svd_vector_distance=svd_dist, dim=M.shape[0],
+             assembly_route=dict(native.ASSEMBLY_ROUTE), **extra, card=card)
         check(M.is_cuda and vec.is_cuda and M.dtype == torch.complex128,
               f"{name}: M and vector complex128 on the card")
         check(bool(torch.isfinite(M).all()) and bool(torch.isfinite(vec).all()),
@@ -2861,6 +2889,11 @@ def native_phases(torch, card, certified_omega):
               f"{name}: N1 launches {n_launch} == 2 + {n_steps} steps")
         check(linalg.NULL_VECTOR_ROUTE["singular"] == singular + 1,
               f"{name}: one null vector by inverse iteration on M^H M")
+        check(native.ASSEMBLY_ROUTE == dict(
+            route, plans=route["plans"] + 1,
+            planned=route["planned"] + 2 + n_steps),
+              f"{name}: one plan, 2 + {n_steps} planned assemblies: "
+              f"{native.ASSEMBLY_ROUTE} after {route}")
         check(svd_dist <= 1e-11,
               f"{name}: null vector {svd_dist:.3e} <= 1e-11 from the SVD's")
         check(n_steps == NATIVE_STEPS[name],
@@ -2892,6 +2925,10 @@ def native_phases(torch, card, certified_omega):
                       f"integrals, m = 0, 1, 2, G15K31",
         "native_assemble_ms": {"tok": tok["native_assemble_ms"],
                                "stel": stel["native_assemble_ms"]},
+        "native_assemble_planned_ms": {
+            "tok": tok["native_assemble_planned_ms"],
+            "stel": stel["native_assemble_planned_ms"]},
+        "assembly_route": dict(native.ASSEMBLY_ROUTE),
         "solve_seconds": {k: v["seconds"] for k, v in slices.items()},
     }
 

@@ -36,6 +36,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils.timer import host_read
+
 GEOMETRY_IDS = {
     "tokamak": 0,
     "stellarator": 1,
@@ -155,17 +157,22 @@ def phys_from_params(p) -> Phys:
     ``integration_start_points``, relative tolerance from
     ``integration_precision``, the absolute floor from
     ``integration_accuracy``, the depth limit from
-    ``integration_iteration_limit``."""
+    ``integration_iteration_limit``.  The scalars (0-d tensors; on the
+    card, device tensors) are stacked and read in one copy, under
+    ``layer.host_read``."""
     if p.conf not in GEOMETRY_IDS:
         raise ValueError(f"unknown geometry {p.conf!r}")
-    return Phys(**{k: float(getattr(p, k)) for k in _PHYS_FLOATS},
+    keys = _PHYS_FLOATS + (("cyl_shat_coeff",) if p.conf == "cylinder"
+                           else ())
+    vals = dict(zip(keys, host_read(torch.Tensor.tolist, torch.stack(
+        [getattr(p, k) for k in keys]).to(_F64))))
+    return Phys(**{k: vals[k] for k in _PHYS_FLOATS},
                 geometry=GEOMETRY_IDS[p.conf],
                 gk_order=int(p.integration_start_points),
                 integration_rel_tol=float(p.integration_precision),
                 precision_goal=float(p.integration_accuracy),
                 max_subdivide=int(p.integration_iteration_limit),
-                cylinder_shat_coeff=(float(p.cyl_shat_coeff)
-                                     if p.conf == "cylinder" else 0.0))
+                cylinder_shat_coeff=vals.get("cyl_shat_coeff", 0.0))
 
 
 # ---------------------------------------------------------------------------
@@ -244,11 +251,15 @@ def pair_rows(ph: Phys, eta, eta_p):
     device: [d_eta, beta1, b_i(eta), b_i(eta')] (the engine's PairCtx)."""
     eta = torch.as_tensor(eta, dtype=_F64)
     eta_p = torch.as_tensor(eta_p, dtype=_F64, device=eta.device)
-    d_eta = eta - eta_p
-    beta1 = (ph.q * ph.R) / ph.vt * ph.omega_d_bar * (g_eta(ph, eta)
-                                                       - g_eta(ph, eta_p))
-    return torch.stack([d_eta, beta1, bi_eta(ph, eta), bi_eta(ph, eta_p)],
-                       dim=1).contiguous()
+    return rows_of(ph, eta - eta_p, g_eta(ph, eta) - g_eta(ph, eta_p),
+                   bi_eta(ph, eta), bi_eta(ph, eta_p))
+
+
+def rows_of(ph: Phys, d_eta, dg, bie, bip):
+    """``pair_rows`` from eta - eta', g(eta) - g(eta'), b_i(eta) and
+    b_i(eta'), which a caller may gather from values on a grid."""
+    beta1 = (ph.q * ph.R) / ph.vt * ph.omega_d_bar * dg
+    return torch.stack([d_eta, beta1, bie, bip], dim=1).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -576,18 +587,47 @@ def ion_prefactor(ph: Phys, values):
     return torch.complex(-(c1 * values[:, 1]), c1 * values[:, 0])
 
 
-def kappa_electron(ph: Phys, m, eta, eta_p, omega):
-    """The engine's closed-form electron term (emme_native.cpp:367-389),
-    complex128; m per element in {0, 1, 2}."""
-    d = eta - eta_p
+@dataclass(frozen=True, eq=False)
+class ElectronPairs:
+    """The omega-free half of the electron term for pairs (eta, eta'), made
+    once for any number of omega: d = eta - eta', sgn(d), C sgn(d) with
+    C = q^2 R^2 / (2 vt^2 tau), and b1e vt / (q R), b1e from
+    g(eta) - g(eta'); each as ``kappa_electron`` evaluates it."""
+    d: torch.Tensor
+    sgn: torch.Tensor
+    c_sgn: torch.Tensor
+    b1e_v: torch.Tensor
+
+    @property
+    def shape(self):
+        """The pairs' shape, as ``kappa_electron``'s ``eta`` has it."""
+        return self.d.shape
+
+
+def electron_pairs(ph: Phys, d, dg) -> ElectronPairs:
+    """``ElectronPairs`` of pairs (eta, eta') from d = eta - eta' and
+    dg = g(eta) - g(eta') (float64 tensors)."""
     sgn = d / torch.abs(d)
     wse = ph.omega_s_e
-    omega = complex(omega)
-    k1 = (-1j * (ph.q * ph.R) / (2.0 * ph.vt * ph.tau) * (omega - wse)) * sgn
     b1e = ((ph.q * ph.R) / ph.vt * (ph.omega_d_bar * wse / ph.omega_s_i)
-           * (g_eta(ph, eta) - g_eta(ph, eta_p)))
-    k2 = ((ph.q * ph.q * ph.R * ph.R) / (2.0 * ph.vt * ph.vt * ph.tau) * sgn
-          * (omega * (omega - wse) * d
-             - b1e * ph.vt / (ph.q * ph.R) * (omega - wse * (1.0 + ph.eta_e))))
+           * dg)
+    return ElectronPairs(
+        d, sgn,
+        (ph.q * ph.q * ph.R * ph.R) / (2.0 * ph.vt * ph.vt * ph.tau) * sgn,
+        b1e * ph.vt / (ph.q * ph.R))
+
+
+def kappa_electron(ph: Phys, m, eta, eta_p, omega):
+    """The engine's closed-form electron term (emme_native.cpp:367-389),
+    complex128; m per element in {0, 1, 2}.  ``eta`` may instead be the
+    pairs' ``ElectronPairs``, with ``eta_p`` None: then only the
+    omega-dependent factors are computed."""
+    e = eta if eta_p is None else electron_pairs(
+        ph, eta - eta_p, g_eta(ph, eta) - g_eta(ph, eta_p))
+    wse = ph.omega_s_e
+    omega = complex(omega)
+    k1 = (-1j * (ph.q * ph.R) / (2.0 * ph.vt * ph.tau) * (omega - wse)) * e.sgn
+    k2 = e.c_sgn * (omega * (omega - wse) * e.d
+                    - e.b1e_v * (omega - wse * (1.0 + ph.eta_e)))
     return torch.where(m == 1, k1, torch.where(m >= 2, k2,
                                                torch.zeros_like(k2)))

@@ -4,12 +4,15 @@ Counterpart of ``emme_tpu/solvers/eigen_native.py``: the Newton secant
 iteration (TraceSecant, solver.h:113-160; QRSecant, solver.h:210-383) on
 ``native.assemble``, whose integrals run through kernel N1 on the card and
 its plain version on the CPU, with the linear algebra of ``ops/linalg`` in
-complex128 on the same device.  It opens the dense path's spans: each
-step's trace solve or QR step under ``layer.linalg.step``, the null vector
-(one LU of the final M and inverse iteration on M^H M: the SVD's vector
-without the SVD) under ``layer.linalg.vector``, and each step's read of
-d_omega under ``layer.host_read`` (``native.assemble`` opens the
-assembly's).
+complex128 on the same device.  A solve makes one ``native.assembly_plan``
+(the parameters' one host read, N1's pair rows, the placement's indices)
+and hands it to each of its 2 + steps assemblies.  It opens the dense
+path's spans: each step's trace solve or QR step under
+``layer.linalg.step``, the null vector (one LU of the final M and inverse
+iteration on M^H M: the SVD's vector without the SVD) under
+``layer.linalg.vector``, and each step's read of d_omega under
+``layer.host_read`` (the plan and ``native.assemble`` open the assembly's,
+the plan's read of the parameters one more ``layer.host_read``).
 """
 
 from __future__ import annotations
@@ -36,12 +39,13 @@ def solve(p, omega_init: complex, tol: float = 1e-6, callback=None,
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
     coeff = singularity_coeff_matrix(p.npoints, dtype=torch.float64,
                                      device=p.device)
+    plan = native.assembly_plan(p, coeff)
 
     omega = 0.99 * complex(omega_init)
     d_omega = 0.01 * complex(omega_init)
-    M_old = native.assemble(p, coeff, omega, n_threads)
+    M_old = native.assemble(p, coeff, omega, n_threads, plan=plan)
     omega = omega + d_omega
-    M = native.assemble(p, coeff, omega, n_threads)
+    M = native.assemble(p, coeff, omega, n_threads, plan=plan)
     dM = (M - M_old) / d_omega
 
     n_steps = 0
@@ -53,7 +57,7 @@ def solve(p, omega_init: complex, tol: float = 1e-6, callback=None,
                 d_omega = -1.0 / linalg.complex_solve_trace(M, dM)
         d_omega = host_read(complex, d_omega)
         omega = omega + d_omega
-        M_new = native.assemble(p, coeff, omega, n_threads)
+        M_new = native.assemble(p, coeff, omega, n_threads, plan=plan)
         dM = (M_new - M) / d_omega
         M = M_new
         n_steps = j + 1

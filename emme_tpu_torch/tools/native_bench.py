@@ -12,8 +12,11 @@ in turn, each in a process of its own, on the same card: give
 line carries the root and the card's name and power limit.  N1's lines
 carry SHA-256 digests of its outputs (the values with -0 read as +0, so
 that equal digests mean values equal as numbers; the panel counts; the
-Miller steps), so that two versions can be compared bit for bit; the
-solves' lines carry omega and the steps.
+Miller steps; the pair rows' bits), so that two versions can be compared
+bit for bit; the assembly's lines carry the bits' digest of M, and where
+the root has ``native.assembly_plan`` the times of a plan and of an
+assembly given one; the solves' lines carry omega, the steps and the
+null vector's digest.
 
 Cases: every integral of one tok1024 assembly (523,776, m = 0, G7K15) and
 one stel1024 assembly (1,571,328, m = 0, 1, 2, G15K31) at chip_smoke.py's
@@ -107,24 +110,42 @@ def measure(root):
                       REPS)
         vals, panels, miller = out
         emit(what="n1", case=f"{case}{NPOINTS}", integrals=int(m.numel()),
-             **summary(n1), values_digest=digest(vals),
+             **summary(n1), rows_bits_digest=digest(rows.view(torch.int64)),
+             values_digest=digest(vals),
              panels_digest=digest(panels), miller_digest=digest(miller),
              panels=int(panels.sum()), miller_steps=int(miller.sum()),
              launch=dict(getattr(cuda_adaptive, "LAST_LAUNCH", {})), **tag)
         del out, vals, panels, miller, rows, m
         asm = event_ms(lambda: native.assemble(p, coeff, om), torch, REPS)
-        emit(what="assemble", case=f"{case}{NPOINTS}", **summary(asm), **tag)
+        M = native.assemble(p, coeff, om)
+        planned = {}
+        if hasattr(native, "assembly_plan"):
+            plan_ms = event_ms(lambda: native.assembly_plan(p, coeff), torch,
+                               REPS)
+            plan = native.assembly_plan(p, coeff)
+            planned = dict(
+                plan_ms_median=statistics.median(plan_ms),
+                planned_ms_median=statistics.median(event_ms(
+                    lambda: native.assemble(p, coeff, om, plan=plan), torch,
+                    REPS)))
+            del plan
+        emit(what="assemble", case=f"{case}{NPOINTS}", **summary(asm),
+             M_bits_digest=digest(torch.view_as_real(M).view(torch.int64)),
+             **planned, **tag)
+        del M
         secs = []
         for rep in range(SOLVE_REPS + 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            w, _vec, steps, _M = eigen_native.solve(p, om, tol=1e-6)
+            w, vec, steps, _M = eigen_native.solve(p, om, tol=1e-6)
             torch.cuda.synchronize()
             if rep:
                 secs.append(time.perf_counter() - t0)
-            del _vec, _M
+            del _M
         emit(what="solve", case=f"{case}{NPOINTS}", **summary(secs, "s"),
-             omega=[w.real, w.imag], steps=steps, **tag)
+             omega=[w.real, w.imag], steps=steps,
+             vector_bits_digest=digest(torch.view_as_real(vec).view(
+                 torch.int64)), **tag)
         torch.cuda.empty_cache()
 
 

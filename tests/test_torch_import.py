@@ -85,7 +85,8 @@ ENTRY_POINTS = {
     "emme_tpu_torch.solvers.sparse_eigen": ("assemble_bdia_window",
                                             "solve_shifts"),
     "emme_tpu_torch.native": ("phys_from_params", "g_bi", "kappa_batch",
-                              "assemble", "available", "build"),
+                              "assemble", "assembly_plan", "available",
+                              "build"),
     "emme_tpu_torch.solvers.eigen_native": ("solve",),
     "emme_tpu_torch.solvers.newton": ("seed", "advance", "step", "run",
                                       "polish", "item", "items"),
@@ -93,7 +94,8 @@ ENTRY_POINTS = {
                                      "secant"),
     "emme_tpu_torch.ops.cuda_adaptive": ("integrate", "build", "flop_count"),
     "emme_tpu_torch.ops.adaptive": ("integrate_ref", "bessel_i01", "g_eta",
-                                    "bi_eta", "pair_rows", "kappa_electron"),
+                                    "bi_eta", "pair_rows", "kappa_electron",
+                                    "electron_pairs"),
 }
 
 

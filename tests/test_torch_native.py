@@ -7,6 +7,8 @@ Every live call into ``emme_tpu.native`` goes through the ``engine``
 fixture, which builds a private copy of ``native/`` in a temporary
 directory, so no test here writes ``native/libemme_native.so``.
 """
+import dataclasses
+import hashlib
 import json
 import shutil
 
@@ -279,6 +281,77 @@ def test_breadth_first_sum_is_depth_first_order(goldens_dir, engine):
     got = adaptive.ion_prefactor(ph, vals).numpy()
     ref = engine.kappa_batch(pj, m, eta, etap, GUESS)
     assert np.abs(got - ref).max() <= 1e-13 * np.abs(ref).max()
+
+
+def _digest(t):
+    return hashlib.sha256(t.contiguous().numpy().tobytes()).hexdigest()[:16]
+
+
+# SHA-256 (first 16 hex digits) of M, N1's rows and moments at npoints 32,
+# from the assembly before it took a plan
+PARENT_ASSEMBLY = {
+    ("tokamak", -0.8 + 0.25j): ("d3e269ddfe6d0835", "01838bcb180f5302",
+                                "5b4a97decc57a483"),
+    ("tokamak", -0.57 + 0.27j): ("eaaf0cc7b5052295", "01838bcb180f5302",
+                                 "5b4a97decc57a483"),
+    ("stellarator", -1.656 + 2.49j): ("34e32fb22bcf298f", "9669f65c65f02ff3",
+                                      "a2d6fcfb8058e899"),
+    ("stellarator", -1.6 + 2.5j): ("067bbd0355237ef8", "9669f65c65f02ff3",
+                                   "a2d6fcfb8058e899"),
+}
+
+
+@pytest.mark.parametrize("name,omega", list(PARENT_ASSEMBLY))
+def test_planned_assembly_is_the_unplanned(goldens_dir, monkeypatch, name,
+                                           omega):
+    """``native.assemble`` with a plan equals the call without one bit for
+    bit: M, and N1's rows, moments and scalars; both equal the assembly's
+    before the plan; the plan's parameters equal ``phys_from_params`` and a
+    float() of each scalar, field by field; the routes counted."""
+    p, _ = _params(goldens_dir, name, npoints=32)
+    coeff = singularity_coeff_matrix(32, device="cpu")
+    seen = []
+    integrate = cuda_adaptive.integrate
+    monkeypatch.setattr(cuda_adaptive, "integrate",
+                        lambda rows, m, sc: seen.append((rows, m, sc))
+                        or integrate(rows, m, sc))
+    before = dict(native.ASSEMBLY_ROUTE)
+    plan = native.assembly_plan(p, coeff)
+    M_plan = native.assemble(p, coeff, omega, plan=plan)
+    M_own = native.assemble(p, coeff, omega)
+    assert native.ASSEMBLY_ROUTE == {"plans": before["plans"] + 2,
+                                     "planned": before["planned"] + 1,
+                                     "unplanned": before["unplanned"] + 1}
+    assert torch.equal(M_plan, M_own)
+    (r1, m1, sc1), (r2, m2, sc2) = seen
+    assert r1 is plan.rows and torch.equal(r1, r2) and torch.equal(m1, m2)
+    assert sc1 == sc2 == adaptive.scalars(plan.ph, omega)
+    assert (_digest(M_plan), _digest(r1), _digest(m1)) \
+        == PARENT_ASSEMBLY[(name, omega)]
+    ph = adaptive.phys_from_params(p)
+    for f in dataclasses.fields(adaptive.Phys):
+        assert getattr(plan.ph, f.name) == getattr(ph, f.name), f.name
+    for k in adaptive._PHYS_FLOATS:
+        assert getattr(plan.ph, k) == float(getattr(p, k)), k
+    with pytest.raises(ValueError, match="another operator"):
+        native.assemble(_params(goldens_dir, name, npoints=16)[0], coeff,
+                        omega, plan=plan)
+
+
+def test_solve_makes_one_plan(goldens_dir):
+    """``eigen_native.solve`` (tok32) makes one plan and hands it to each of
+    its 2 + steps assemblies; omega, the null vector and M are the solve's
+    before the plan, bit for bit."""
+    p, _ = _params(goldens_dir, "tokamak", npoints=32)
+    before = dict(native.ASSEMBLY_ROUTE)
+    om, vec, steps, M = eigen_native.solve(p, GUESS, tol=1e-6)
+    assert native.ASSEMBLY_ROUTE == {"plans": before["plans"] + 1,
+                                     "planned": before["planned"] + 2 + steps,
+                                     "unplanned": before["unplanned"]}
+    assert (om.real.hex(), om.imag.hex(), steps) == (
+        "-0x1.260116889af97p-1", "0x1.18e3435f50767p-2", 6)
+    assert (_digest(vec), _digest(M)) == ("c1e9793f0273f375",
+                                          "9b9e5f690ba5d2b6")
 
 
 def test_wrapper_checks_and_guards(goldens_dir):

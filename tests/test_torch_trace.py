@@ -144,21 +144,22 @@ def test_every_newton_step_opens_its_linear_algebra(method):
 @pytest.mark.parametrize("method", ["TraceSecant", "QRSecant"])
 def test_exact_backend_opens_the_dense_paths_spans(method):
     """The driver's exact backend (``eigen_native.solve`` on
-    ``native.assemble``): an assembly's two spans each assembly, one
-    ``layer.linalg.step`` and one ``layer.host_read`` of d_omega a Newton
-    step, one ``layer.linalg.vector``, the result's copy read, and no
-    guard; none nests in its own name."""
+    ``native.assemble``): an assembly's two spans each assembly and the
+    plan's ``layer.assembly.pairs`` once a solve, one ``layer.linalg.step``
+    and one ``layer.host_read`` of d_omega a Newton step, one
+    ``layer.linalg.vector``, the plan's read of the parameters, the result's
+    copy read, and no guard; none nests in its own name."""
     cfg = _input("tokamak.json", npoints=32, eigen_backend="exact",
                  iteration_method=method)
     (res, _), spans = _traced(lambda: driver.solve_once_eigen(
         cfg, GUESS, dtype=torch.float64, device="cpu"))
     steps = res["iteration_steps"]
     names = collections.Counter(name for name, _, _ in spans)
-    assert names["layer.assembly.pairs"] == names["layer.assembly.place"] \
+    assert names["layer.assembly.pairs"] - 1 == names["layer.assembly.place"] \
         == steps + 2
     assert names["layer.linalg.step"] == steps
     assert names["layer.linalg.vector"] == 1
-    assert names["layer.host_read"] == steps + 1
+    assert names["layer.host_read"] == steps + 2
     assert names["layer.driver.params"] == 1
     assert "layer.driver.guard" not in names
     assert set(names) <= set(SPANS)
@@ -169,20 +170,22 @@ def test_exact_backend_opens_the_dense_paths_spans(method):
 def test_exact_backend_electron_span(conf):
     """``layer.assembly.electron``: once an assembly of the electromagnetic
     exact solve (stel32, from near its root), between the assembly's pairs
-    and place spans; never on the electrostatic one (tok32)."""
+    and place spans, after the plan's pairs span; never on the
+    electrostatic one (tok32)."""
     guess = {"stellarator": complex(-0.474, 0.627), "tokamak": GUESS}[conf]
     cfg = _input(f"{conf}.json", npoints=32, eigen_backend="exact")
     (res, _), spans = _traced(lambda: driver.solve_once_eigen(
         cfg, guess, dtype=torch.float64, device="cpu"))
     names = collections.Counter(name for name, _, _ in spans)
     assemblies = res["iteration_steps"] + 2
-    assert names["layer.assembly.pairs"] == assemblies
+    assert names["layer.assembly.pairs"] == assemblies + 1
     assert names["layer.assembly.electron"] == (
         assemblies if conf == "stellarator" else 0)
     order = [n for n, _, _ in spans if n.startswith("layer.assembly.")]
     if conf == "stellarator":
-        assert order == ["layer.assembly.pairs", "layer.assembly.electron",
-                         "layer.assembly.place"] * assemblies
+        assert order == ["layer.assembly.pairs"] + [
+            "layer.assembly.pairs", "layer.assembly.electron",
+            "layer.assembly.place"] * assemblies
     assert set(names) <= set(SPANS)
     assert not _nested_in_own_name(spans)
 
