@@ -207,7 +207,8 @@ check exits non-zero:
    ||M v|| / ||M||_F < 1e-4; the raw Arnoldi estimate's
    distance to golden; the sixteen shifts of benchmarks/bench_arnoldi.py
    (default_rng(0), -0.8+0.25j +- 0.15) through solve_shifts_batched,
-   counted, with its seconds, peak device memory and the four closest
+   counted (K1's launches and arnoldi.SURVEY_ROUTE, 1 / 16 / 32 / 16),
+   with its seconds, peak device memory and the four closest
    estimates, two of them against solve_one_shift (BATCH_BAR).  Time limit
    120 s.
 25. mesh_window_assembly: the windows of a 4-row layout of the tok8192
@@ -2639,12 +2640,16 @@ def dense_arnoldi_phase(torch, card):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cuda_kappa.LAUNCHES = 0
+    route = dict(arnoldi.SURVEY_ROUTE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ests = arnoldi.solve_shifts_batched(p, sigmas, **ARNOLDI_KW)
     torch.cuda.synchronize()
     batch_s = time.perf_counter() - t0
     batch_launches = cuda_kappa.LAUNCHES
+    route = {k: arnoldi.SURVEY_ROUTE[k] - route[k] for k in route}
+    check(route == {"surveys": 1, "shifts": 16, "assemblies": 32,
+                    "plans": 16}, f"the survey's route counts {route}")
     peak = torch.cuda.max_memory_allocated()
     dist = sorted((rel(e), k) for k, e in enumerate(ests))
     check(len(ests) == 16 and all(np.isfinite(ests)),
@@ -2669,7 +2674,7 @@ def dense_arnoldi_phase(torch, card):
                        "k1_launches": trace_launches},
          faster="TraceSecant" if trace_s < arn_s else "Arnoldi + polish",
          shifts={"n": 16, "seconds": batch_s, "peak_memory_bytes": peak,
-                 "k1_launches": batch_launches,
+                 "k1_launches": batch_launches, "survey_route": route,
                  "closest_rel_err": [d for d, _ in dist[:4]],
                  "batched_vs_unbatched": {str(k): v
                                           for k, v in unbatched.items()}},

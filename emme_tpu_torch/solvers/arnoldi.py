@@ -31,8 +31,17 @@ from ..ops import kernels
 from ..ops.singularity import singularity_coeff_matrix
 from ..params import default_device
 from ..parallel import mesh as mesh_mod
-from ..utils.timer import host_read
+from ..utils.timer import host_read, span
 from . import eigen, newton
+
+# Multi-shift surveys (``solve_shifts_batched``) since the caller last set
+# them to 0: "surveys" the calls, "shifts" the shifts batched (a rank's
+# share on a mesh), "assemblies" the operators they assembled (two a
+# shift, ``_secant_pair``) and "plans" the assembly plans ``_secant_pair``
+# asked ``_plan`` for (one a shift; built where ``eigen.kernel_route``
+# holds, None on the torch route).
+SURVEY_ROUTE = {"surveys": 0, "shifts": 0, "assemblies": 0, "plans": 0}
+
 
 def arnoldi_factorization(solve_B, n: int, m_krylov: int,
                           dtype=torch.complex128, device=None,
@@ -186,15 +195,22 @@ def _batched_hessenbergs(p, grid, coeff, sigmas, m_krylov, quad, chunk):
     tensors, one batched LU, one batched Arnoldi sweep: the (S, m+1, m)
     Hessenbergs on the device."""
     M = dM = None
-    for k, s in enumerate(sigmas):
-        m, d = _secant_pair(p, grid, coeff, _shift(s, grid), quad, chunk, 0.01)
-        if M is None:
-            M = m.new_empty((len(sigmas), *m.shape))
-            dM = torch.empty_like(M)
-        M[k], dM[k] = m, d
-    solve_B, _ = _lu_solver(M, dM)
-    _, H = arnoldi_factorization(solve_B, M.shape[-1], m_krylov, M.dtype,
-                                 M.device, batch=(len(sigmas),))
+    with span("survey.secant"):
+        for k, s in enumerate(sigmas):
+            m, d = _secant_pair(p, grid, coeff, _shift(s, grid), quad, chunk,
+                                0.01)
+            SURVEY_ROUTE["shifts"] += 1
+            SURVEY_ROUTE["assemblies"] += 2
+            SURVEY_ROUTE["plans"] += 1
+            if M is None:
+                M = m.new_empty((len(sigmas), *m.shape))
+                dM = torch.empty_like(M)
+            M[k], dM[k] = m, d
+    with span("survey.lu"):
+        solve_B, _ = _lu_solver(M, dM)
+    with span("survey.sweep"):
+        _, H = arnoldi_factorization(solve_B, M.shape[-1], m_krylov, M.dtype,
+                                     M.device, batch=(len(sigmas),))
     return H
 
 
@@ -206,7 +222,13 @@ def solve_shifts_batched(p, sigmas, m_krylov: int = 24, quad=None,
     ``parallel.mesh.Mesh``, called in every rank) the shifts split over its
     ``scan`` axis -- their number must divide by its size -- each rank
     batches its share, and the Hessenbergs are all-gathered, so every rank
-    returns every estimate."""
+    returns every estimate.
+
+    Counted in ``SURVEY_ROUTE``.  Spans: ``layer.survey.secant`` (each
+    shift's two assemblies, the secant and the fill of the batch),
+    ``.lu``, ``.sweep``, and ``.ritz`` (the Hessenbergs' read and the host
+    eigensolves)."""
+    SURVEY_ROUTE["surveys"] += 1
     grid, coeff = _grid_coeff(p, dtype)
     sigmas = np.asarray(sigmas, dtype=np.complex128).reshape(-1)
     if mesh is None:
@@ -224,6 +246,7 @@ def solve_shifts_batched(p, sigmas, m_krylov: int = 24, quad=None,
         H = mesh_mod.all_gather(_batched_hessenbergs(
             p, grid, coeff, sigmas[mesh.scan * k:(mesh.scan + 1) * k],
             m_krylov, quad, chunk), mesh, axis="scan", tiled=True)
-    H = H.cpu().numpy()
-    return np.array([ritz_from_hessenberg(H[k], s, m_krylov)[0][0]
-                     for k, s in enumerate(sigmas)])
+    with span("survey.ritz"):
+        H = host_read(H.cpu).numpy()
+        return np.array([ritz_from_hessenberg(H[k], s, m_krylov)[0][0]
+                         for k, s in enumerate(sigmas)])

@@ -37,6 +37,10 @@ SPANS = (
     "layer.linalg.step",       # a Newton step's linear algebra
     "layer.linalg.vector",     # the null vector after the loop
     "layer.linalg.arnoldi",    # the banded shift-invert Arnoldi stage
+    "layer.survey.secant",     # a multi-shift survey's M and M' a shift
+    "layer.survey.lu",         # its batched LU of the shifts' M
+    "layer.survey.sweep",      # its batched Arnoldi sweep
+    "layer.survey.ritz",       # its Hessenbergs' read, the host eigensolves
     "layer.host_read",         # a blocking device-to-host read
     "layer.pic.setup",         # cuda_pic.run up to K3's launch
     "layer.pic.k3",            # K3's launch (K2's step loop on that path)

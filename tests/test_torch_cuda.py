@@ -1,6 +1,6 @@
 """The CUDA kernels on an NVIDIA GPU against their plain PyTorch versions:
 K1 and the float32 solves through it (Newton, the shift-invert Arnoldi
-with its polish, and K1 at the window shape of the mesh-sharded banded
+with its polish, the multi-shift survey's counter and spans, and K1 at the window shape of the mesh-sharded banded
 assembly); the dense assembly's kernels P and Q around K1 against the
 torch they replace (inputs, M, solves, launches); the quadrature guard's
 kernels G and R (with P) against the guard's torch route, its launches and
@@ -127,6 +127,32 @@ def test_arnoldi_solve_f32_tok128_through_kernel(card):
     for s, e in zip(sigmas, ests):
         one, _, _ = arnoldi.solve_one_shift(p, grid, coeff, s, 24)
         assert abs(e - one) <= 1e-4 * abs(one)
+
+
+@pytest.mark.cuda
+def test_survey_counts_its_work_and_traces_without_moving_it(card):
+    """The multi-shift survey at n=128 in float32 on the card: 1 / S / 2S /
+    S in ``arnoldi.SURVEY_ROUTE``, its 2S assemblies on the kernels' route
+    with a plan each, and the same estimates bit for bit with a profiler
+    recording (its four spans open) as without."""
+    from torch.profiler import ProfilerActivity, profile
+    p = et.from_config(_cfg("tokamak", 128), dtype=torch.float32, device=card)
+    sigmas = -0.8 + 0.25j + 0.15 * np.array([0.3 - 0.2j, -0.5 + 0.9j,
+                                             1.1 + 0.1j, -0.2 - 1.3j])
+    route, kernels_before = dict(arnoldi.SURVEY_ROUTE), \
+        eigen.ASSEMBLY_ROUTE["kernels"]
+    plain = arnoldi.solve_shifts_batched(p, sigmas, m_krylov=24)
+    assert {k: arnoldi.SURVEY_ROUTE[k] - route[k] for k in route} == {
+        "surveys": 1, "shifts": 4, "assemblies": 8, "plans": 4}
+    assert eigen.ASSEMBLY_ROUTE["kernels"] - kernels_before == 8
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = arnoldi.solve_shifts_batched(p, sigmas, m_krylov=24)
+    opened = {e.name() for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("layer.survey.")}
+    assert opened == {"layer.survey.secant", "layer.survey.lu",
+                      "layer.survey.sweep", "layer.survey.ritz"}
+    assert np.array_equal(plain, traced) and np.isfinite(plain).all()
 
 
 _ASSEMBLY_CASES = {"tok": ("tokamak", -0.8 + 0.25j, 5e-7),

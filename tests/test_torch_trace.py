@@ -20,7 +20,7 @@ import emme_tpu_torch as et
 from emme_tpu_torch import driver
 from emme_tpu_torch.grid import Grid
 from emme_tpu_torch.ops.singularity import singularity_coeff_matrix
-from emme_tpu_torch.solvers import cuda_pic, eigen
+from emme_tpu_torch.solvers import arnoldi, cuda_pic, eigen
 from emme_tpu_torch.utils.timer import SPANS, Timer, host_read, section, span
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -91,6 +91,14 @@ def _pic(launch="auto"):
     return cuda_pic.run(p, 8, 2, 0.25, generator=gen, launch=launch)
 
 
+def _survey():
+    p = et.from_config(_input("tokamak.json", npoints=16),
+                       dtype=torch.float32, device="cpu")
+    return arnoldi.solve_shifts_batched(p, [GUESS, -0.7 + 0.3j], m_krylov=4)
+
+
+SURVEY = {"layer.survey.secant", "layer.survey.lu", "layer.survey.sweep",
+          "layer.survey.ritz"}
 EIGEN = {"layer.driver.params", "layer.driver.guard", "layer.assembly.pairs",
          "layer.assembly.place", "layer.linalg.step", "layer.linalg.vector",
          "layer.host_read"}
@@ -99,6 +107,8 @@ PATHS = {
     "stellarator": (_stellarator, EIGEN),
     "banded": (_banded, EIGEN | {"layer.linalg.arnoldi"}),
     "pic": (_pic, {"layer.pic.setup", "layer.pic.k3", "layer.pic.state"}),
+    "survey": (_survey, SURVEY | {"layer.assembly.pairs",
+                                  "layer.assembly.place", "layer.host_read"}),
 }
 
 
@@ -109,6 +119,32 @@ def test_path_opens_its_spans(path):
     opened = {name for name, _, _ in spans}
     assert reached <= opened, sorted(reached - opened)
     assert opened <= set(SPANS), sorted(opened - set(SPANS))
+    assert not _nested_in_own_name(spans)
+    if path != "survey":   # the banded Arnoldi stage opens none of them
+        assert not opened & SURVEY, sorted(opened & SURVEY)
+
+
+def test_survey_spans_its_stages():
+    """A survey opens each of its four spans once, in order; its 2S
+    assemblies (their pairs and place spans) lie inside
+    ``layer.survey.secant`` and its one host read, of the Hessenbergs,
+    inside ``layer.survey.ritz``."""
+    _, spans = _traced(_survey)
+    names = collections.Counter(name for name, _, _ in spans)
+    assert all(names[n] == 1 for n in SURVEY)
+    assert [n for n, _, _ in spans if n in SURVEY] == [
+        "layer.survey.secant", "layer.survey.lu", "layer.survey.sweep",
+        "layer.survey.ritz"]
+    at = {n: (t0, t1) for n, t0, t1 in spans if n in SURVEY}
+
+    def within(name, outer):
+        return all(at[outer][0] <= t0 and t1 <= at[outer][1]
+                   for n, t0, t1 in spans if n == name)
+    assert names["layer.assembly.pairs"] == names["layer.assembly.place"] == 4
+    assert within("layer.assembly.pairs", "layer.survey.secant")
+    assert within("layer.assembly.place", "layer.survey.secant")
+    assert names["layer.host_read"] == 1
+    assert within("layer.host_read", "layer.survey.ritz")
     assert not _nested_in_own_name(spans)
 
 
