@@ -242,13 +242,21 @@ check exits non-zero:
    Miller steps, and max abs within 1e-12 of the largest value; max abs,
    median, flips, the kernel's ms (median of 3) and the plain version's,
    the bound, and native.assemble's ms without a plan and with one made
-   beforehand (native.assembly_plan), the two M equal bit for bit, the
+   beforehand (native.assembly_plan; the plan's N1 memo serves the
+   repeats: the first plain, the second filling, the others reading), the
+   two M equal bit for bit, the
    plan's N1 rows equal to adaptive.pair_rows of the pairs' ends bit for
    bit, and native.ASSEMBLY_ROUTE; N1's launch shape (slots a warp:
    integrals a warp holds at a time, blocks of the persistent grid,
    registers a thread) and SHA-256 digests of its outputs (the values with
    -0 read as +0, the panel counts, the Miller steps), as
    emme_tpu_torch/tools/native_bench.py prints them for a parent commit.
+   native_memo: N1's memo (cuda_adaptive.Memo) along a whole
+   eigen_native.solve of each, each launch against a memo-free one at the
+   same omega (0 values or panel counts differing): the routes (first,
+   fill, reads), each launch's CUDA-event ms beside the memo-free one's,
+   Miller steps, nodes memoised and in full, the reads' hit share and the
+   memo's bytes.
 28. native_slice: eigen_native.solve(p, w0, tol=1e-6) in float64 on the
    card through the port's modules, counted (N1 launches = 2 + steps):
    stel1024 from -1.656+2.490j within 1e-8 of
@@ -257,8 +265,8 @@ check exits non-zero:
    each, and phase 5b's certified float32 omega's distance to this one;
    the null vector (one route count, inverse iteration on M^H M) within
    1e-11 up to a phase of the right singular vector of the card's SVD;
-   one assembly plan a solve, every assembly planned
-   (native.ASSEMBLY_ROUTE).
+   one assembly plan a solve, every assembly planned, its N1 memo filled
+   once and read at every step (native.ASSEMBLY_ROUTE).
 
 The kernels JSON gives every kernel its bound: the larger of the bytes it
 must move (each input read once, each output written once; for K3, whose
@@ -2757,6 +2765,64 @@ def mesh_window_phase(torch, card):
             "max_abs_err": max(r["k1_vs_plain_max_abs_err"] for r in rows)}
 
 
+def native_memo(torch, p, ph, rows, m, om0):
+    """Phase 27's memo: N1 along a whole eigen_native.solve's omega sequence
+    (0.99 om0, om0, each step's omega) with a fresh memo (the first launch
+    plain, the second filling, the later reading) against a memo-free launch
+    at each omega: 0 values (bits) or panel counts differing; each launch's
+    CUDA-event ms beside the memo-free one's, its Miller steps, its nodes
+    memoised and in full; the reads' hit share, the memo's bytes."""
+    from emme_tpu_torch.ops import adaptive, cuda_adaptive
+    from emme_tpu_torch.solvers import eigen_native
+
+    seq = [0.99 * om0, om0]
+    eigen_native.solve(p, om0, tol=1e-6,
+                       callback=lambda j, w, d: seq.append(w))
+
+    def event_ms(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b), out
+
+    memo = cuda_adaptive.Memo()
+    launches = []
+    for w in seq:
+        sc = adaptive.scalars(ph, w)
+        plain_ms, (v0, p0, m0) = event_ms(
+            lambda: cuda_adaptive.integrate(rows, m, sc))
+        ms, (v1, p1, m1) = event_ms(
+            lambda: cuda_adaptive.integrate(rows, m, sc, memo=memo))
+        differ = int((v0.view(torch.int64) != v1.view(torch.int64))
+                     .any(1).sum()) + int((p0 != p1).sum())
+        stats = memo.stats[-1].tolist() \
+            if memo.last in ("fill", "read") else None
+        launches.append({"route": memo.last, "ms": ms, "plain_ms": plain_ms,
+                         "differ": differ, "miller": int(m1.sum()),
+                         "plain_miller": int(m0.sum()),
+                         "nodes_memo_full": stats})
+    routes = [r["route"] for r in launches]
+    check(routes == ["first", "fill"] + ["read"] * (len(seq) - 2),
+          f"the memo's routes along the solve: {routes}")
+    check(all(r["differ"] == 0 for r in launches),
+          "the memo's launches equal the memo-free ones bit for bit: "
+          f"{[r['differ'] for r in launches]} integrals differ")
+    reads = [r for r in launches if r["route"] == "read"]
+    hits = [r["nodes_memo_full"][0] / sum(r["nodes_memo_full"])
+            for r in reads]
+    return {"launches": launches, "integrals": int(m.numel()),
+            "memoised": memo.n, "memo_bytes": memo.bytes,
+            "read_ms": statistics.median(r["ms"] for r in reads),
+            "fill_ms": launches[1]["ms"],
+            "plain_ms": statistics.median(r["plain_ms"] for r in launches),
+            "read_hit_share_min": min(hits),
+            "read_hit_share_mean": statistics.mean(hits)}
+
+
 def native_phases(torch, card, certified_omega):
     """Phases 27-28: N1 against its plain version on the card, and the
     reference-exact solves through the port's modules; returns N1's entry of
@@ -2826,7 +2892,11 @@ def native_phases(torch, card, certified_omega):
             plan.rows.view(torch.int64), rows.view(torch.int64))
               and torch.equal(plan.m, m),
               f"{name}: the plan's N1 rows and moments are pair_integrals'")
-        del M, M_plan, plan, rows, m, got, ref
+        del M, M_plan, plan, got, ref
+        memo = native_memo(torch, p, ph, rows, m, om)
+        emit("native_memo", case=f"{'tok' if name == 'tokamak' else 'stel'}"
+             f"{N_TOK}", **memo, card=card)
+        del rows, m
         cmp[name] = {
             "integrals": int(panels.numel()), "max_abs_err": max_abs,
             "scale": scale, "max_rel": float(rel.max()),
@@ -2844,7 +2914,9 @@ def native_phases(torch, card, certified_omega):
             "assembly_route": dict(native.ASSEMBLY_ROUTE),
             "slots": shape["slots"],
             "blocks": shape["blocks"], "registers": shape["registers"],
-            "local_bytes": shape["local_bytes"], **digests}
+            "local_bytes": shape["local_bytes"], **digests,
+            "memo_read_ms": memo["read_ms"],
+            "memo_read_hit_share": memo["read_hit_share_min"]}
         emit("native_vs_plain", case=f"{'tok' if name == 'tokamak' else 'stel'}"
              f"{N_TOK}", order=ph.gk_order, max_subdivide=ph.max_subdivide,
              moments=[0, 1, 2] if p.electromagnetic else [0], **cmp[name],
@@ -2896,8 +2968,11 @@ def native_phases(torch, card, certified_omega):
               f"{name}: one null vector by inverse iteration on M^H M")
         check(native.ASSEMBLY_ROUTE == dict(
             route, plans=route["plans"] + 1,
-            planned=route["planned"] + 2 + n_steps),
-              f"{name}: one plan, 2 + {n_steps} planned assemblies: "
+            planned=route["planned"] + 2 + n_steps,
+            memo_fills=route["memo_fills"] + 1,
+            memo_reads=route["memo_reads"] + n_steps),
+              f"{name}: one plan, 2 + {n_steps} planned assemblies, the "
+              f"memo filled once and read {n_steps} times: "
               f"{native.ASSEMBLY_ROUTE} after {route}")
         check(svd_dist <= 1e-11,
               f"{name}: null vector {svd_dist:.3e} <= 1e-11 from the SVD's")

@@ -21,7 +21,8 @@
 // says why); --fmad=false leaves explicit fma() alone.  The prefactor
 // -i qR / (vt sqrt(2 pi)) and the placement in the matrix are the caller's.
 //
-// What bounds it: float64 instructions.  A pair reads 36 bytes and writes 28;
+// What bounds it (a plain or fill launch): float64 instructions.  A pair
+// reads 36 bytes and writes 28;
 // a node costs some 180-230 float64 operations besides its Bessel recurrence
 // over 24 to ~100 steps, with IEEE divisions and libm calls (tan, cos, atan,
 // sincos, exp, hypot) among them; at tok1024 the recurrence is ~80 % of the
@@ -48,12 +49,30 @@
 // from a global counter (zeroed by the wrapper).  The grid is persistent:
 // the co-resident number of blocks, so no SM waits on a block's slowest
 // integral.  The kernel allocates nothing and does not synchronise.
+//
+// The memo.  A solve assembles the same integrals at 2 + steps values of
+// omega, and a node's omega-free half (adaptive_node.h: the Miller
+// recurrence and all but about a tenth of the rest) is the same at each
+// of them while sign(Re omega) is.  A fill launch (kFill) writes the free
+// half of every node of each panel an integral visits to the integral's
+// place in a device memo, a record a panel with its interval as the key,
+// in the depth-first order, until the place is full.  A read launch
+// (kRead) walks the integral's records in that order beside its own pops:
+// a popped interval equal to the next record's key takes the record and
+// runs only omega_half; any other is evaluated in full.  A record holds
+// what free_half computed for that interval and pair, so a hit gives the
+// node's value bit for bit and so the tree its splits; a tree that moved
+// only misses.  A record is a node's 21 fields, each at the stride of a
+// slot's lanes (16 under G7K15, 32 under G15K31), so a slot reads and
+// writes a field in adjacent words.  A read is bound by those bytes.  The
+// wrapper (ops/cuda_adaptive.py) sizes the places, chooses the mode, and
+// holds sign(Re omega) and the other scalars to the fill's.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "adaptive_bessel.h"
+#include "adaptive_node.h"
 
 namespace {
 
@@ -64,7 +83,6 @@ constexpr int kMaxPops = 100000;
 // the stacks of a block, (max_subdivide + 2) intervals and a node buffer a
 // slot, stay under 92 KB (opted in past the default 48 KB)
 constexpr int kMaxSubdivide = 700;
-constexpr double kCutoff = -40.0;
 constexpr double kHalfPi = 3.14159265358979323846 / 2.0;
 constexpr double kInvScale = 2.0 / kHalfPi;
 
@@ -96,104 +114,39 @@ __constant__ double kWK31[16] = {
     0.035346360791375846,  0.0254608473267153202, 0.0150079473293161225,
     0.00537747987292334899};
 
-// omega, arc_coeff, q R, vt, omega_s_i, eta_i, rel_tol, precision_goal
-struct Scal {
-  double om_r, om_i, arc, qR, vt, wsi, eta_i, rel_tol, pg;
-  int order, max_sub;
+// A launch's memo (adaptive_node.h's records; see the notes at the top):
+// unused by a plain launch.
+enum Mode { kPlain = 0, kFill = 1, kRead = 2 };
+
+struct Memo {
+  double* rec;              // (places, kHalfFields, W) float64: the records
+  double2* keys;            // (places,): a record's interval [lo, hi]
+  const long long* cum;     // (n,): the inclusive sum of the places
+  int* nrec;                // (n,): the records the fill wrote
+  long long n;              // integrals memoised, a prefix of the launch's
+  unsigned long long* stats;   // [nodes memoised, nodes in full]
 };
-
-struct Pair {
-  double d_eta, beta1, bie, bip, sqrt_bb;
-};
-
-// a / (c + i d) for real a: __divdc3 with a zero imaginary numerator
-__device__ __forceinline__ C rdiv(double a, C b) {
-  if (fabs(b.r) < fabs(b.i)) {
-    const double r = b.r / b.i;
-    const double den = b.r * r + b.i;
-    return {(a * r) / den, (-a) / den};
-  }
-  const double r = b.i / b.r;
-  const double den = b.i * r + b.r;
-  return {a / den, (-(a * r)) / den};
-}
-
-// i b / (c + i d) for real b: __divdc3 with a zero real numerator
-__device__ __forceinline__ C idiv(double b, C z) {
-  if (fabs(z.r) < fabs(z.i)) {
-    const double r = z.r / z.i;
-    const double den = z.r * r + z.i;
-    return {b / den, (b * r) / den};
-  }
-  const double r = z.i / z.r;
-  const double den = z.i * r + z.r;
-  return {(b * r) / den, b / den};
-}
-
-// f(tan x) / cos^2 x: the engine's PairCtx::operator() at t = tan x
-__device__ C integrand(double x, const Pair& pr, int m, const Scal& sc,
-                       int& steps) {
-  const double t = tan(x);
-  const double c = cos(x);
-  const double omi = -copysign(1.0, sc.om_r);
-  const double phi = (-omi) * atan(t / sc.arc);
-  const double ear = cos(phi), eai = sin(phi);
-  const C tau = {t * ear, t * eai};
-  const double dj = sc.arc * (1.0 + (t / sc.arc) * (t / sc.arc));
-  const C jac = {ear - (((-eai) * omi) * t) / dj, eai - ((ear * omi) * t) / dj};
-  const double qrd = sc.qR * pr.d_eta;
-  const C lam = {1.0 + ((-0.5 * (tau.i * sc.vt)) / qrd) * pr.beta1,
-                 ((0.5 * (tau.r * sc.vt)) / qrd) * pr.beta1};
-  C i0s, i1s, zs;
-  bessel_i01(rdiv(pr.sqrt_bb, lam), i0s, i1s, zs, steps);
-  const C l3 = rdiv(1.0, cmul(cmul(lam, lam), lam));
-  const C nv = rdiv(qrd, C{sc.vt * tau.r, sc.vt * tau.i});
-  const C h = cmul(C{0.5 * nv.r, 0.5 * nv.i}, nv);
-  const double hr = sc.eta_i * (h.r - 1.5);
-  const double hi = sc.eta_i * h.i;
-  const C a0 = cdiv(C{sc.om_r - sc.wsi * (1.0 + hr), sc.om_i - sc.wsi * hi},
-                    lam);
-  const double we = sc.wsi * sc.eta_i;
-  const C b0 = cmul(C{we * (0.5 * (pr.bie + pr.bip) - lam.r), we * (-lam.i)},
-                    l3);
-  const C i0c = {a0.r + b0.r, a0.i + b0.i};
-  const double w1 = -sc.wsi * sc.eta_i * pr.sqrt_bb;
-  const C i1c = {w1 * l3.r, w1 * l3.i};
-  const C A = cmul(C{-0.5 * nv.r, -0.5 * nv.i}, nv);
-  const double hb = 0.5 * pr.beta1;
-  const C B = {-(hb * nv.i), hb * nv.r};
-  const C Cc = cmul(C{-tau.i, tau.r}, C{sc.om_r, sc.om_i});
-  const C E = idiv(pr.beta1, nv);
-  const C G = rdiv(pr.bie + pr.bip, C{2.0 + E.r, E.i});
-  const double xr = ((A.r - B.r) + Cc.r) - G.r - zs.r;
-  const double xi = ((A.i - B.i) + Cc.i) - G.i - zs.i;
-  if (xr < kCutoff) return {0.0, 0.0};
-  const C nm = m >= 2 ? cmul(nv, nv) : (m == 1 ? nv : C{1.0, 0.0});
-  C f = cmul(cdiv(nm, tau), jac);
-  const double ex = exp(xr);
-  f = cmul(f, C{ex * cos(xi), ex * sin(xi)});
-  const C s0 = cmul(i0c, i0s);
-  const C s1 = cmul(i1c, i1s);
-  f = cmul(f, C{s0.r + s1.r, s0.i + s1.i});
-  const double cc = c * c;
-  return {f.r / cc, f.i / cc};
-}
 
 // One warp, S slots: S integrals of (rows, moments) at a time, each through
 // the engine's integrate_adaptive (emme_native.cpp:319-350) with its own
-// stack, sums and counts, taken from `next` as the slots free up.
-template <bool kK31>
+// stack, sums and counts, taken from `next` as the slots free up.  kFill
+// also writes each visited panel's free halves to the integral's place
+// while it has room; kRead serves a popped panel that matches the
+// integral's next record from the record (the omega half alone) and
+// evaluates any other in full.
+template <bool kK31, int kMode>
 __global__ void __launch_bounds__(kThreads)
     adaptive_kernel(const double* __restrict__ rows,
                     const int* __restrict__ moments, long long n, Scal sc,
                     double* __restrict__ out, int* __restrict__ panels,
                     long long* __restrict__ miller,
-                    unsigned long long* __restrict__ next) {
+                    unsigned long long* __restrict__ next, Memo mm) {
   constexpr int S = kK31 ? 1 : 2;        // slots a warp
   constexpr int W = 32 / S;              // lanes a slot
   constexpr int nh = kK31 ? 16 : 8;
   constexpr int nn = 2 * nh - 1;         // nodes a panel
   constexpr int gauss = kK31 ? 15 : 7;
+  constexpr long long kRec = static_cast<long long>(kHalfFields) * W;
   extern __shared__ double2 smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -219,6 +172,12 @@ __global__ void __launch_bounds__(kThreads)
   int m = 0, sp = 0, guard = 0, pops = 0;
   long long steps = 0;
   double sum_r = 0.0, sum_i = 0.0, abs_tol = 0.0;
+  // the memo: the integral's place, its records (kRead) or room (kFill),
+  // the next record and its key, the slot's panels memoised and in full
+  long long base = 0;
+  int len = 0, cur = 0;
+  double2 key = make_double2(0.0, 0.0);
+  long long memo_panels = 0, full_panels = 0;
   auto start = [&]() {
     const double* row = rows + 4 * k;
     pr.d_eta = row[0];
@@ -232,6 +191,15 @@ __global__ void __launch_bounds__(kThreads)
     guard = pops = 0;
     steps = 0;
     sum_r = sum_i = abs_tol = 0.0;
+    if constexpr (kMode != kPlain) {
+      const bool in = k < mm.n;
+      base = in && k > 0 ? mm.cum[k - 1] : 0;
+      len = !in ? 0
+                : (kMode == kFill ? static_cast<int>(mm.cum[k] - base)
+                                  : mm.nrec[k]);
+      cur = 0;
+      if (kMode == kRead && len > 0) key = mm.keys[base];
+    }
   };
   bool live = k < n;
   if (live) start();
@@ -251,6 +219,7 @@ __global__ void __launch_bounds__(kThreads)
         out[2 * k + 1] = sum_i;
         panels[k] = pops;
         miller[k] = tot;
+        if (kMode == kFill && k < mm.n) mm.nrec[k] = cur;
         nk = static_cast<long long>(slots + atomicAdd(next, 1ull));
       }
       nk = __shfl_sync(kFull, nk, 0, W);
@@ -271,14 +240,41 @@ __global__ void __launch_bounds__(kThreads)
       iv = stack[--sp];
       mid = 0.5 * (iv.x + iv.y);
       half = 0.5 * (iv.y - iv.x);
-      if (node < nn) {
-        const double x =
-            node == 0 ? mid : (plus ? mid + half * xn : mid - half * xn);
-        int st;
-        const C f = integrand(x, pr, m, sc, st);
-        steps += st;
-        fbuf[node] = make_double2(f.r, f.i);
+      bool hit = false;
+      if constexpr (kMode == kRead) {
+        // the records are in the depth-first order: skip those the tree no
+        // longer visits
+        while (cur < len && key_before(key.x, key.y, iv.x, iv.y))
+          if (++cur < len) key = mm.keys[base + cur];
+        hit = cur < len && key.x == iv.x && key.y == iv.y;
       }
+      // this lane's node in the record at the cursor
+      auto rec = [&]() { return mm.rec + (base + cur) * kRec + node; };
+      C f;
+      if (hit) {
+        if (node < nn) f = omega_half(load_half(rec(), W), sc);
+        if (++cur < len) key = mm.keys[base + cur];
+        ++memo_panels;
+      } else {
+        const bool keep = kMode == kFill && cur < len;
+        if (node < nn) {
+          const double x =
+              node == 0 ? mid : (plus ? mid + half * xn : mid - half * xn);
+          int st;
+          const Half h = free_half(x, pr, m, sc, st);
+          steps += st;
+          if (keep) store_half(rec(), W, h);
+          f = omega_half(h, sc);
+        }
+        if (keep) {
+          if (leader) mm.keys[base + cur] = iv;
+          ++cur;
+          ++memo_panels;
+        } else {
+          ++full_panels;
+        }
+      }
+      if (node < nn) fbuf[node] = make_double2(f.r, f.i);
     }
     __syncwarp();
     double gkr = 0.0, gki = 0.0, gr = 0.0, gi = 0.0;
@@ -304,11 +300,11 @@ __global__ void __launch_bounds__(kThreads)
     if (work) {
       const double ir = gkr * half, ii = gki * half;
       const double err = hypot(gkr - gr, gki - gi) * half;
-      const double cur = hypot(sc.rel_tol * ir, sc.rel_tol * ii);
-      if (abs_tol == 0.0) abs_tol = cur;
+      const double cur_tol = hypot(sc.rel_tol * ir, sc.rel_tol * ii);
+      if (abs_tol == 0.0) abs_tol = cur_tol;
       const bool can_split = ldexp(half, sc.max_sub) > 0.99 * kHalfPi;
       if (can_split && err > abs_tol * kInvScale + sc.pg &&
-          err > cur + sc.pg) {
+          err > cur_tol + sc.pg) {
         if (leader) {
           stack[sp] = make_double2(mid, iv.y);
           stack[sp + 1] = make_double2(iv.x, mid);
@@ -322,6 +318,13 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncwarp();
   }
+  if constexpr (kMode != kPlain) {
+    if (leader && memo_panels + full_panels > 0) {
+      atomicAdd(mm.stats, static_cast<unsigned long long>(memo_panels * nn));
+      atomicAdd(mm.stats + 1,
+                static_cast<unsigned long long>(full_panels * nn));
+    }
+  }
 }
 
 // What a launch of one instance at one shared-memory size needs, found
@@ -331,10 +334,10 @@ struct Shape {
   int dev = -1, smem = -1, per_sm = 0, sms = 0, regs = 0, local = 0;
 };
 
-template <bool kK31>
+template <bool kK31, int kMode>
 cudaError_t shape_of(int smem, Shape& sh) {
   static Shape cached;   // one per instance
-  auto kernel = adaptive_kernel<kK31>;
+  auto kernel = adaptive_kernel<kK31, kMode>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -363,16 +366,17 @@ cudaError_t shape_of(int smem, Shape& sh) {
 
 // Launch at the co-resident grid; info: [slots a warp, blocks, registers a
 // thread, local bytes a thread].
-template <bool kK31>
+template <bool kK31, int kMode>
 int launch(const double* rows, const int* moments, long long n,
            const Scal& sc, double* out, int* panels, long long* miller,
-           unsigned long long* next, cudaStream_t stream, int* info) {
+           unsigned long long* next, const Memo& mm, cudaStream_t stream,
+           int* info) {
   constexpr int S = kK31 ? 1 : 2;
   constexpr int W = 32 / S;
   const int smem = kWarps * S * (sc.max_sub + 2 + W) *
                    static_cast<int>(sizeof(double2));
   Shape sh;
-  const cudaError_t err = shape_of<kK31>(smem, sh);
+  const cudaError_t err = shape_of<kK31, kMode>(smem, sh);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (sh.per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long per_block = static_cast<long long>(kWarps) * S;
@@ -383,9 +387,24 @@ int launch(const double* rows, const int* moments, long long n,
   info[1] = grid;
   info[2] = sh.regs;
   info[3] = sh.local;
-  adaptive_kernel<kK31><<<grid, kThreads, smem, stream>>>(
-      rows, moments, n, sc, out, panels, miller, next);
+  adaptive_kernel<kK31, kMode><<<grid, kThreads, smem, stream>>>(
+      rows, moments, n, sc, out, panels, miller, next, mm);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kK31>
+int launch_mode(int mode, const double* rows, const int* moments,
+                long long n, const Scal& sc, double* out, int* panels,
+                long long* miller, unsigned long long* next, const Memo& mm,
+                cudaStream_t stream, int* info) {
+  if (mode == kFill)
+    return launch<kK31, kFill>(rows, moments, n, sc, out, panels, miller,
+                               next, mm, stream, info);
+  if (mode == kRead)
+    return launch<kK31, kRead>(rows, moments, n, sc, out, panels, miller,
+                               next, mm, stream, info);
+  return launch<kK31, kPlain>(rows, moments, n, sc, out, panels, miller, next,
+                              mm, stream, info);
 }
 
 }  // namespace
@@ -395,29 +414,47 @@ extern "C" {
 // The largest max_subdivide the kernel's shared-memory stacks take.
 int adaptive_max_subdivide() { return kMaxSubdivide; }
 
+// float64 a record: a node's fields at the stride of a slot's lanes.
+int adaptive_record_doubles(int order) {
+  return kHalfFields * (order == 31 ? 32 : 16);
+}
+
 // Launch on `stream`.  rows: (n, 4) float64 [d_eta, beta1, b_i(eta),
 // b_i(eta')]; moments: (n,) int32; scal: 9 host doubles [om_r, om_i, arc,
 // qR, vt, omega_s_i, eta_i, rel_tol, precision_goal]; out: (n, 2) float64;
 // panels: (n,) int32; miller: (n,) int64; next: one zeroed uint64 on the
 // device (the slots' work counter); info: 4 host ints, the launch's shape
-// (see launch).  Returns cudaGetLastError() after the launch (0 on
-// success).
+// (see launch).  mode 0: plain, the memo's pointers unused; 1: fill; 2:
+// read.  A memo launch's memo: rec, (places, adaptive_record_doubles)
+// float64; keys, (places, 2) float64; cum, (n_memo,) int64 inclusive sum of
+// the places; nrec, (n_memo,) int32; stats, two zeroed uint64 that the
+// launch adds its [nodes memoised, nodes in full] to (memoised: written by
+// a fill, read by a read).  Returns cudaGetLastError() after the launch (0
+// on success).
 int adaptive_launch(const double* rows, const int* moments, long long n,
                     const double* scal, int order, int max_sub, double* out,
                     int* panels, long long* miller, void* next, void* stream,
-                    int* info) {
+                    int* info, int mode, double* rec, double* keys,
+                    const long long* cum, int* nrec, long long n_memo,
+                    void* stats) {
   if (n < 1 || (order != 15 && order != 31) || max_sub < 0 ||
-      max_sub > kMaxSubdivide)
+      max_sub > kMaxSubdivide || mode < kPlain || mode > kRead ||
+      (mode != kPlain && (rec == nullptr || keys == nullptr ||
+                          cum == nullptr || nrec == nullptr ||
+                          stats == nullptr || n_memo < 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Scal sc = {scal[0], scal[1], scal[2], scal[3], scal[4], scal[5],
                    scal[6], scal[7], scal[8], order, max_sub};
+  const Memo mm = {rec, reinterpret_cast<double2*>(keys), cum, nrec,
+                   mode == kPlain ? 0 : n_memo,
+                   static_cast<unsigned long long*>(stats)};
   auto* counter = static_cast<unsigned long long*>(next);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return order == 31
-             ? launch<true>(rows, moments, n, sc, out, panels, miller,
-                            counter, st, info)
-             : launch<false>(rows, moments, n, sc, out, panels, miller,
-                             counter, st, info);
+             ? launch_mode<true>(mode, rows, moments, n, sc, out, panels,
+                                 miller, counter, mm, st, info)
+             : launch_mode<false>(mode, rows, moments, n, sc, out, panels,
+                                  miller, counter, mm, st, info);
 }
 
 }  // extern "C"

@@ -16,7 +16,11 @@ parameters (one host read), N1's pair rows and moments, the gathered
 singularity coefficients, the flat index of every write into M with the
 constant diagonals, and the electron term's omega-free half.  A solve makes
 one and gives it to each of its assemblies; ``assemble`` without one makes
-its own.  Counted in ``ASSEMBLY_ROUTE``.  The spans: ``layer.assembly.pairs``
+its own.  On the card a plan also carries N1's memo
+(``cuda_adaptive.Memo``): the plan's first assembly runs N1 plain, its
+second fills the memo with each node's omega-free half, and the later ones
+read it; an assembly without a plan takes no memo.  Counted in
+``ASSEMBLY_ROUTE``.  The spans: ``layer.assembly.pairs``
 around the plan and around each assembly's integrals and the kernel values
 made of them, ``layer.assembly.place`` around the writes into M; an
 electromagnetic operator's electron closed forms open
@@ -33,8 +37,10 @@ from .ops import adaptive, cuda_adaptive
 from .ops.adaptive import phys_from_params  # noqa: F401  (public)
 from .utils.timer import span
 
-# plans made, assemblies given a plan, assemblies that made their own
-ASSEMBLY_ROUTE = {"plans": 0, "planned": 0, "unplanned": 0}
+# plans made, assemblies given a plan, assemblies that made their own, and
+# of the planned, those whose N1 launch filled the plan's memo or read it
+ASSEMBLY_ROUTE = {"plans": 0, "planned": 0, "unplanned": 0, "memo_fills": 0,
+                  "memo_reads": 0}
 
 
 def build() -> str:
@@ -126,6 +132,7 @@ class AssemblyPlan:
     diagonal: torch.Tensor    # the constant diagonal entries, complex128
     electron: adaptive.ElectronPairs | None   # electromagnetic only
     m_e: torch.Tensor | None  # the electron term's moments, (pairs, 2)
+    n1_memo: cuda_adaptive.Memo | None   # on the card only
 
 
 def assembly_plan(p, coeff) -> AssemblyPlan:
@@ -134,8 +141,8 @@ def assembly_plan(p, coeff) -> AssemblyPlan:
     read), the upper triangle's pairs iu < ju and their N1 rows and moments,
     coeff[iu, ju], the flat index of each write into M (the pairs' entries
     in ``assemble``'s order, then the diagonals), the diagonal entries
-    1 + 1 / tau and, when electromagnetic, 2 tau / beta_e b_i(eta), and the
-    electron term's omega-free half."""
+    1 + 1 / tau and, when electromagnetic, 2 tau / beta_e b_i(eta), the
+    electron term's omega-free half, and on the card N1's memo, empty."""
     dev = p.device
     n = int(p.npoints)
     em = bool(p.electromagnetic)
@@ -165,15 +172,18 @@ def assembly_plan(p, coeff) -> AssemblyPlan:
             ph=ph, dim=dim, dx=2.0 * ph.length / (n - 1), rows=rows,
             m=m, coeff=_f64(coeff, dev)[iu, ju],
             index=torch.cat(at_r + diags) * dim + torch.cat(at_c + diags),
-            diagonal=torch.cat(diagonal), electron=electron, m_e=m_e)
+            diagonal=torch.cat(diagonal), electron=electron, m_e=m_e,
+            n1_memo=cuda_adaptive.Memo() if rows.is_cuda else None)
 
 
 def assemble(p, coeff, omega, n_threads=None, plan=None):
     """The dense operator M(omega), complex128 (dim, dim) on ``p.device``,
     dim = npoints (electrostatic) or 2 npoints (electromagnetic), with the
     engine's entries (emme_native.cpp:439-496).  ``plan``:
-    ``assembly_plan(p, coeff)``, made once for many omega; without one the
-    call makes its own."""
+    ``assembly_plan(p, coeff)``, made once for many omega, whose N1 memo
+    the call drives; without one the call makes its own and takes no
+    memo."""
+    memo = None
     if plan is None:
         ASSEMBLY_ROUTE["unplanned"] += 1
         plan = assembly_plan(p, coeff)
@@ -182,10 +192,13 @@ def assemble(p, coeff, omega, n_threads=None, plan=None):
         if plan.dim != int(p.npoints) * (2 if p.electromagnetic else 1):
             raise ValueError("assemble: the plan was made for another "
                              "operator")
+        memo = plan.n1_memo
     ph, dx = plan.ph, plan.dx
     with span("assembly.pairs"):
         vals, _panels, _miller = cuda_adaptive.integrate(
-            plan.rows, plan.m, adaptive.scalars(ph, omega))
+            plan.rows, plan.m, adaptive.scalars(ph, omega), memo=memo)
+        if memo is not None and memo.last in ("fill", "read"):
+            ASSEMBLY_ROUTE[f"memo_{memo.last}s"] += 1
         k = adaptive.ion_prefactor(ph, vals).reshape(plan.coeff.numel(), -1)
     if plan.electron is not None:
         with span("assembly.electron"):

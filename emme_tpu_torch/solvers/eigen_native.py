@@ -6,7 +6,9 @@ iteration (TraceSecant, solver.h:113-160; QRSecant, solver.h:210-383) on
 its plain version on the CPU, with the linear algebra of ``ops/linalg`` in
 complex128 on the same device.  A solve makes one ``native.assembly_plan``
 (the parameters' one host read, N1's pair rows, the placement's indices)
-and hands it to each of its 2 + steps assemblies.  It opens the dense
+and hands it to each of its 2 + steps assemblies; on the card the plan's
+N1 memo is filled by the second and read by the later ones (one more host
+read, of the memo's size, at the second).  It opens the dense
 path's spans: each step's trace solve or QR step under
 ``layer.linalg.step``, the null vector (one LU of the final M and inverse
 iteration on M^H M: the SVD's vector without the SVD) under

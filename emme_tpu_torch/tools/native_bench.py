@@ -15,7 +15,8 @@ that equal digests mean values equal as numbers; the panel counts; the
 Miller steps; the pair rows' bits), so that two versions can be compared
 bit for bit; the assembly's lines carry the bits' digest of M, and where
 the root has ``native.assembly_plan`` the times of a plan and of an
-assembly given one; the solves' lines carry omega, the steps and the
+assembly given one (where the plan carries N1's memo, its calls after the
+first two read the memo); the solves' lines carry omega, the steps and the
 null vector's digest.
 
 Cases: every integral of one tok1024 assembly (523,776, m = 0, G7K15) and

@@ -12,7 +12,9 @@ the same driver call on CPU tensors; a one-rank NCCL mesh solve against
 the single-device solve; the sorted-window PIC path (plain torch, no
 kernel) against the plain run; and N1 (the float64 adaptive assembly of the
 reference-exact engine) against its plain version, in its slot and
-work-counter edge cases too, with the tok32 solve through it.  Every test
+work-counter edge cases too, with the tok32 solve through it, and N1's
+memo (a solve's fill and reads, misses, a flipped sign of Re omega, a
+memo of a prefix) against memo-free launches, bit for bit.  Every test
 here needs a card and skips without one.
 
 This file imports torch, numpy and the port only, so it also runs on a
@@ -1413,3 +1415,138 @@ def test_adaptive_kernel_refuses_a_deep_stack(card):
     with pytest.raises(ValueError):
         cuda_adaptive.integrate(rows, m, deep)
     assert cuda_adaptive.LAUNCHES == before
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int64)
+
+
+def _memo_holds_to_plain(rows, m, sc, memo):
+    """One launch with the memo against a memo-free one at the same
+    scalars: values bit for bit (signs of zero included) and panel counts
+    equal; Miller steps equal where the launch ran every recurrence
+    (plain, fill), fewer where it read; a memo launch's node counts add up
+    to its panels' nodes.  Returns the launch's route and [nodes memoised,
+    nodes in full] (None for a plain launch)."""
+    ref, rpanels, rmiller = cuda_adaptive.integrate(rows, m, sc)
+    stats_before = len(memo.stats)
+    got, panels, miller = cuda_adaptive.integrate(rows, m, sc, memo=memo)
+    assert torch.equal(_bits(got), _bits(ref))
+    assert torch.equal(panels, rpanels)
+    nodes = 2 * len(adaptive.gk_rule(sc.order)[0]) - 1
+    if memo.last in ("fill", "read"):
+        assert len(memo.stats) == stats_before + 1
+        stats = memo.stats[-1].tolist()
+        assert sum(stats) == int(panels.sum()) * nodes
+    else:
+        assert len(memo.stats) == stats_before
+        stats = None
+    if memo.last == "read":
+        assert bool((miller <= rmiller).all())
+        assert int(miller.sum()) < int(rmiller.sum()) or stats[0] == 0
+    else:
+        assert torch.equal(miller, rmiller)
+    return memo.last, stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n", [("tokamak", 128), ("tokamak", 1024),
+                                    ("stellarator", 128),
+                                    ("stellarator", 1024)])
+def test_adaptive_memo_along_a_solve_is_bit_equal(card, name, n):
+    """N1's memo along a solve's omega sequence (0.99 omega_init, omega_init,
+    then each step's omega): the first launch plain, the second filling,
+    the later reading, each bit for bit the memo-free launch in values and
+    panel counts.  The solve itself fills its plan's memo once and reads it
+    at each step (``native.ASSEMBLY_ROUTE``).  At npoints 1024 the reads
+    take 95 % of their nodes or more from the memo.  (The stellarator at
+    npoints 128 walks from the file's guess to another root in some 24
+    steps, so its trees move and many nodes miss.)"""
+    p = et.from_config(_cfg(name, n), device=card)
+    om0 = -0.8 + 0.25j if name == "tokamak" else -1.656 + 2.49j
+    seq = [0.99 * om0, om0]
+    route = dict(native.ASSEMBLY_ROUTE)
+    _om, _vec, steps, _M = eigen_native.solve(
+        p, om0, tol=1e-6, callback=lambda j, w, d: seq.append(w))
+    assert native.ASSEMBLY_ROUTE == dict(
+        route, plans=route["plans"] + 1,
+        planned=route["planned"] + 2 + steps,
+        memo_fills=route["memo_fills"] + 1,
+        memo_reads=route["memo_reads"] + steps)
+    iu, ju = torch.triu_indices(n, n, 1, device=card)
+    rows, m, _, ph = native.pair_integrals(p, iu, ju)
+    memo = cuda_adaptive.Memo()
+    routes, hits = [], []
+    for w in seq:
+        r, stats = _memo_holds_to_plain(rows, m, adaptive.scalars(ph, w), memo)
+        routes.append(r)
+        if r == "read":
+            hits.append(stats[0] / sum(stats))
+    assert routes == ["first", "fill"] + ["read"] * steps
+    assert memo.n == rows.shape[0] and memo.bytes > 0
+    print(f"{name}{n}: {steps} steps, hit shares {hits}, "
+          f"{memo.bytes / 1e9:.3f} GB")
+    if n == 1024:
+        assert min(hits) >= 0.95
+
+
+def _at(sc, omega):
+    """The scalars ``sc`` at another omega."""
+    return adaptive.Scalars(**{**sc.__dict__, "om_r": omega.real,
+                               "om_i": omega.imag})
+
+
+@pytest.mark.cuda
+def test_adaptive_memo_misses_stay_bit_equal(card):
+    """Reads at an omega far from the fill's (the same sign of Re omega):
+    the trees move, so nodes miss and are evaluated in full, and every
+    value and panel count stays the memo-free launch's."""
+    rows, m, sc = _adaptive_inputs("tokamak", 128, card)
+    om = complex(sc.om_r, sc.om_i)
+    memo = cuda_adaptive.Memo()
+    for w in (0.99 * om, om):
+        _memo_holds_to_plain(rows, m, _at(sc, w), memo)
+    route, stats = _memo_holds_to_plain(rows, m, _at(sc, -0.3 + 0.6j), memo)
+    assert route == "read" and stats[0] > 0 and stats[1] > 0
+    print(f"tok128 at -0.3+0.6j: {stats[1] / sum(stats):.4f} of nodes missed")
+
+
+@pytest.mark.cuda
+def test_adaptive_memo_sign_flip_runs_plain(card):
+    """A launch whose sign(Re omega) is not the first's runs plain (no memo
+    launch, no node counts) and equals the memo-free launch; a later launch
+    of the first sign reads again; a second launch of the other sign makes
+    no memo for the solve."""
+    rows, m, sc = _adaptive_inputs("tokamak", 128, card)
+    om = complex(sc.om_r, sc.om_i)
+    memo = cuda_adaptive.Memo()
+    got = [_memo_holds_to_plain(rows, m, _at(sc, w), memo)[0]
+           for w in (0.99 * om, om, -om.conjugate(), 1.01 * om)]
+    assert got == ["first", "fill", "plain", "read"]
+    memo = cuda_adaptive.Memo()
+    got = [_memo_holds_to_plain(rows, m, _at(sc, w), memo)[0]
+           for w in (0.99 * om, -om.conjugate(), om)]
+    assert got == ["first", "plain", "plain"] and memo.n == 0
+
+
+@pytest.mark.cuda
+def test_adaptive_memo_small_share_memoises_a_prefix(card, monkeypatch):
+    """A memory share that holds about half the places memoises a prefix of
+    the integrals (the others run in full at every launch) and stays bit
+    for bit the memo-free launch."""
+    rows, m, sc = _adaptive_inputs("stellarator", 128, card)
+    _v, panels, _mi = cuda_adaptive.integrate(rows, m, sc)
+    need = int(panels.sum()) * cuda_adaptive.panel_bytes(sc.order)
+    free, _total = torch.cuda.mem_get_info(card)
+    free += torch.cuda.memory_reserved(card) - \
+        torch.cuda.memory_allocated(card)
+    monkeypatch.setattr(cuda_adaptive, "MEMO_SHARE",
+                        0.5 * need * cuda_adaptive.MEMO_GROWTH / free)
+    om = complex(sc.om_r, sc.om_i)
+    memo = cuda_adaptive.Memo()
+    got = [_memo_holds_to_plain(rows, m, _at(sc, w), memo)
+           for w in (0.99 * om, om, om * (1 + 1e-3j), om * 1.001)]
+    assert [r for r, _ in got] == ["first", "fill", "read", "read"]
+    assert 0 < memo.n < rows.shape[0]
+    assert got[-1][1][1] > 0
+    print(f"stel128: {memo.n} of {rows.shape[0]} integrals memoised")

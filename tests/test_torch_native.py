@@ -313,17 +313,21 @@ def test_planned_assembly_is_the_unplanned(goldens_dir, monkeypatch, name,
     seen = []
     integrate = cuda_adaptive.integrate
     monkeypatch.setattr(cuda_adaptive, "integrate",
-                        lambda rows, m, sc: seen.append((rows, m, sc))
-                        or integrate(rows, m, sc))
+                        lambda rows, m, sc, memo=None:
+                        seen.append((rows, m, sc, memo))
+                        or integrate(rows, m, sc, memo))
     before = dict(native.ASSEMBLY_ROUTE)
     plan = native.assembly_plan(p, coeff)
     M_plan = native.assemble(p, coeff, omega, plan=plan)
     M_own = native.assemble(p, coeff, omega)
-    assert native.ASSEMBLY_ROUTE == {"plans": before["plans"] + 2,
-                                     "planned": before["planned"] + 1,
-                                     "unplanned": before["unplanned"] + 1}
+    assert native.ASSEMBLY_ROUTE == dict(before,
+                                         plans=before["plans"] + 2,
+                                         planned=before["planned"] + 1,
+                                         unplanned=before["unplanned"] + 1)
     assert torch.equal(M_plan, M_own)
-    (r1, m1, sc1), (r2, m2, sc2) = seen
+    (r1, m1, sc1, memo1), (r2, m2, sc2, memo2) = seen
+    # N1's memo is the card's: a CPU plan has none
+    assert plan.n1_memo is None and memo1 is None and memo2 is None
     assert r1 is plan.rows and torch.equal(r1, r2) and torch.equal(m1, m2)
     assert sc1 == sc2 == adaptive.scalars(plan.ph, omega)
     assert (_digest(M_plan), _digest(r1), _digest(m1)) \
@@ -345,9 +349,9 @@ def test_solve_makes_one_plan(goldens_dir):
     p, _ = _params(goldens_dir, "tokamak", npoints=32)
     before = dict(native.ASSEMBLY_ROUTE)
     om, vec, steps, M = eigen_native.solve(p, GUESS, tol=1e-6)
-    assert native.ASSEMBLY_ROUTE == {"plans": before["plans"] + 1,
-                                     "planned": before["planned"] + 2 + steps,
-                                     "unplanned": before["unplanned"]}
+    assert native.ASSEMBLY_ROUTE == dict(
+        before, plans=before["plans"] + 1,
+        planned=before["planned"] + 2 + steps)
     assert (om.real.hex(), om.imag.hex(), steps) == (
         "-0x1.260116889af97p-1", "0x1.18e3435f50767p-2", 6)
     assert (_digest(vec), _digest(M)) == ("c1e9793f0273f375",
