@@ -142,12 +142,13 @@ def assembly_plan(p, coeff) -> AssemblyPlan:
     coeff[iu, ju], the flat index of each write into M (the pairs' entries
     in ``assemble``'s order, then the diagonals), the diagonal entries
     1 + 1 / tau and, when electromagnetic, 2 tau / beta_e b_i(eta), the
-    electron term's omega-free half, and on the card N1's memo, empty."""
+    electron term's omega-free half, and on the card N1's memo, empty.
+    Under ``layer.assembly.plan``, inside ``layer.assembly.pairs``."""
     dev = p.device
     n = int(p.npoints)
     em = bool(p.electromagnetic)
     ASSEMBLY_ROUTE["plans"] += 1
-    with span("assembly.pairs"):
+    with span("assembly.pairs"), span("assembly.plan"):
         ph = phys_from_params(p)
         iu, ju = torch.triu_indices(n, n, 1, device=dev)
         rows, m, grid, g, b = _pair_inputs(p, ph, iu, ju)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..utils.timer import host_read
+from ..utils.timer import host_read, span
 from . import adaptive
 
 LAUNCHES = 0
@@ -166,26 +166,27 @@ class Memo:
         """The integrals' places from the first launch's panel counts: the
         prefix whose places total at most ``budget`` panels, and the memo
         for it; returns the integrals memoised (0: none, nothing
-        allocated)."""
-        cum = torch.cumsum(self.panels, 0, dtype=torch.int64)
-        self.panels = None
-        n = torch.searchsorted(cum, torch.full((1,), budget, dtype=torch.int64,
-                                               device=cum.device),
-                               right=True)[0]
-        total = cum[(n - 1).clamp(min=0)] * (n > 0)
-        n, total = host_read(torch.Tensor.tolist, torch.stack([n, total]))
-        if n == 0:
-            return 0
-        rd = record_doubles(self.fixed.order)
-        used = total * (rd + 2)
-        alloc = max(used, math.ceil(MEMO_GROWTH ** math.ceil(
-            math.log(used, MEMO_GROWTH))))
-        buf = torch.empty(alloc, dtype=torch.float64, device=cum.device)
-        self.rec, self.keys = buf[:total * rd], buf[total * rd:used]
-        self.cum = cum[:n]
-        self.nrec = torch.empty(n, dtype=torch.int32, device=cum.device)
-        self.n, self.bytes = n, 8 * alloc
-        return n
+        allocated).  Under ``layer.assembly.plan``."""
+        with span("assembly.plan"):
+            cum = torch.cumsum(self.panels, 0, dtype=torch.int64)
+            self.panels = None
+            n = torch.searchsorted(cum, torch.full(
+                (1,), budget, dtype=torch.int64, device=cum.device),
+                right=True)[0]
+            total = cum[(n - 1).clamp(min=0)] * (n > 0)
+            n, total = host_read(torch.Tensor.tolist, torch.stack([n, total]))
+            if n == 0:
+                return 0
+            rd = record_doubles(self.fixed.order)
+            used = total * (rd + 2)
+            alloc = max(used, math.ceil(MEMO_GROWTH ** math.ceil(
+                math.log(used, MEMO_GROWTH))))
+            buf = torch.empty(alloc, dtype=torch.float64, device=cum.device)
+            self.rec, self.keys = buf[:total * rd], buf[total * rd:used]
+            self.cum = cum[:n]
+            self.nrec = torch.empty(n, dtype=torch.int32, device=cum.device)
+            self.n, self.bytes = n, 8 * alloc
+            return n
 
     def done(self, route: str, rows, sc: adaptive.Scalars, panels):
         """Keeps what a launch of ``route`` leaves for the next."""

@@ -51,7 +51,7 @@ import torch
 
 from .. import _build
 from ..ops.bessel import bessel_j0, bessel_j1
-from ..utils.timer import span
+from ..utils.timer import host_read, span
 from . import pic
 from .pic import RK_COEF, PICState
 
@@ -135,17 +135,21 @@ class FusedStep:
     def params_vec(p, dt) -> np.ndarray:
         """The (16,) float32 scalar block, computed in float32 as
         ``pallas_pic.py:371-379`` does, with sub_dt of each stage and the
-        stage-2 RK weights."""
+        stage-2 RK weights.  Each of p's scalars is its own blocking read
+        (``timer.host_read``): eight a block."""
         def f(v):
             return torch.as_tensor(v).to(device="cpu", dtype=_F32)
+
+        def read(v):
+            return host_read(f, v)
 
         cw = pic.cell_width(p)
         vals = torch.zeros(N_PARAMS, dtype=_F32)
         sets = {P_L: p.length, P_CW: cw, P_VT: p.vt, P_BT: p.b_theta,
-                P_SHAT: p.shat, P_ODB: p.omega_d_bar, P_QR: p.q * p.R,
-                P_I2CW: 1.0 / (2.0 * f(cw))}
+                P_SHAT: p.shat, P_ODB: p.omega_d_bar, P_QR: p.q * p.R}
         for k, v in sets.items():
-            vals[k] = f(v)
+            vals[k] = read(v)
+        vals[P_I2CW] = 1.0 / (2.0 * read(cw))
         dtf = f(dt)
         for stage in range(3):
             vals[P_SUBDT + stage] = float(RK_COEF[stage][stage + 1]) * dtf
@@ -215,7 +219,13 @@ def run(p, marker_per_cell: int, n_steps: int, dt, generator=None,
     ``precision`` ("default", "high", "highest") is accepted for the JAX
     package's contract.  On the card all three give exact float32 gathers
     and deposits: the single bf16 pass of "default" was a property of the
-    TPU's matrix unit, and nothing here is a matrix product."""
+    TPU's matrix unit, and nothing here is a matrix product.
+
+    Spans: ``layer.pic.setup`` up to K3's launch, holding
+    ``layer.pic.params`` (``FusedStep``: its eight reads of p's scalars),
+    ``layer.pic.qn`` (the quasi-neutrality coefficient) and
+    ``layer.pic.arrs`` (the initial state, the marker arrays, the field's
+    planes); ``layer.pic.k3``; ``layer.pic.state``."""
     global LAST_LAUNCH
     with span("pic.setup"):
         if p.dtype != _F32:
@@ -228,12 +238,15 @@ def run(p, marker_per_cell: int, n_steps: int, dt, generator=None,
                              f"got {precision!r}")
         if n_steps < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-        fs = FusedStep(p, marker_per_cell * p.npoints, dt)
-        state = pic.initial_state(p, marker_per_cell, generator, state)
-        qn = pic.quasi_neutrality_coef(p, dtype=_F32)
-        arrs = state_to_arrs(state)
-        field = tuple(f.to(_F32).contiguous() for f in (state.field.real,
-                                                         state.field.imag))
+        with span("pic.params"):
+            fs = FusedStep(p, marker_per_cell * p.npoints, dt)
+        with span("pic.qn"):
+            qn = pic.quasi_neutrality_coef(p, dtype=_F32)
+        with span("pic.arrs"):
+            state = pic.initial_state(p, marker_per_cell, generator, state)
+            arrs = state_to_arrs(state)
+            field = tuple(f.to(_F32).contiguous()
+                          for f in (state.field.real, state.field.imag))
 
         path = launch
         if launch != "stages":
@@ -716,8 +729,9 @@ def grid_sync_selfcheck(device, nf: int, dc: bool):
             gen = torch.Generator(device=device).manual_seed(0)
             x = torch.rand((n_blocks, THREADS), generator=gen, dtype=_F32,
                            device=device)
-            if not torch.equal(grid_sync_probe(x, cluster=cluster),
-                               grid_sync_probe_ref(x)):
+            same = host_read(torch.equal, grid_sync_probe(x, cluster=cluster),
+                             grid_sync_probe_ref(x))
+            if not same:
                 info["reason"] = ("the grid-sync probe failed: a block did "
                                   "not see another block's writes")
         _SELFCHECK[key] = (info["reason"] is None, info)

@@ -135,14 +135,17 @@ def assembly_plan(p, grid: Grid, quad=None, tiers=None):
     """The kernels' plan of ``grid``'s assemblies (``cuda_assembly.Plan``):
     the tiers' pairs and panel meshes as ``_tiered_pair_values`` takes them
     (one tier of every pair on ``quad`` without ``tiers``), g(eta) and
-    bi(eta) at the grid's points and the parameters' scalars."""
-    plan = pair_plan(grid.npoints, tiers, str(grid.eta.device))
-    if tiers is None:
-        groups = [(plan["iu"], plan["ju"], None)]
-    else:
-        groups = [(iu, ju, kernels.scaled_quad(quad, grid.eta.dtype, spec))
-                  for iu, ju, spec in plan["groups"]]
-    return cuda_assembly.build_plan(p, grid, groups, quad)
+    bi(eta) at the grid's points and the parameters' scalars.  Under the
+    span ``layer.assembly.plan``."""
+    with span("assembly.plan"):
+        plan = pair_plan(grid.npoints, tiers, str(grid.eta.device))
+        if tiers is None:
+            groups = [(plan["iu"], plan["ju"], None)]
+        else:
+            groups = [(iu, ju, kernels.scaled_quad(quad, grid.eta.dtype,
+                                                   spec))
+                      for iu, ju, spec in plan["groups"]]
+        return cuda_assembly.build_plan(p, grid, groups, quad)
 
 
 def assemble_matrix(p, grid: Grid, coeff, omega, quad=None, chunk: int = 2048,
@@ -637,36 +640,41 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
     ``fused``: the kernel integrals through ``cuda_kappa.kappa_pairs_fused``
     -- the CUDA kernel K1 on a card, its plain version on the CPU.  Default:
     on for float32; float64 has no kernel (``discretization``).
-    """
-    tol = tol if tol is not None else 1e-6
-    dtype = dtype if dtype is not None else p.length.dtype
-    device = p.length.device
-    cdtype = kernels.complex_dtype(dtype)
-    if method not in _STEP_FNS:
-        raise ValueError(f"method must be one of {sorted(_STEP_FNS)}, "
-                         f"got {method!r}")
-    if timed and method != "TraceSecant":
-        raise ValueError(f"timed=True is TraceSecant only, got {method!r}")
-    if loop is None:
-        loop = "device" if (device.type == "cuda" and callback is None
-                            and not timed and method != "QRSecant") \
-            else "host"
-    if loop not in ("host", "device"):
-        raise ValueError(f"loop must be 'host' or 'device', got {loop!r}")
-    if loop == "device" and (callback is not None or timed):
-        raise ValueError("loop='device' is incompatible with callback/timed")
-    grid = Grid.create(p.length, p.npoints, dtype=dtype, device=device)
-    coeff = singularity_coeff_matrix(p.npoints, dtype=dtype, device=device)
 
-    tiers, fused = discretization(p, dtype, tiered, fused)
-    plan = assembly_plan(p, grid, quad, tiers) \
-        if kernel_route(p, grid, fused) else None
-    kw = dict(quad=quad, chunk=chunk, tiers=tiers, fused=fused, plan=plan)
-    assemble = assembler(p, grid, coeff, **kw)
-    step = functools.partial(
-        newton_trace_step_timed if timed else _STEP_FNS[method],
-        p, grid, coeff, **kw)
-    omega0 = torch.tensor(complex(omega_init), dtype=cdtype, device=device)
+    ``layer.solve.setup`` spans the set-up up to the first assembly: the
+    argument checks, the grid, the coefficients, the tiers and the plan.
+    """
+    with span("solve.setup"):
+        tol = tol if tol is not None else 1e-6
+        dtype = dtype if dtype is not None else p.length.dtype
+        device = p.length.device
+        cdtype = kernels.complex_dtype(dtype)
+        if method not in _STEP_FNS:
+            raise ValueError(f"method must be one of {sorted(_STEP_FNS)}, "
+                             f"got {method!r}")
+        if timed and method != "TraceSecant":
+            raise ValueError(f"timed=True is TraceSecant only, got {method!r}")
+        if loop is None:
+            loop = "device" if (device.type == "cuda" and callback is None
+                                and not timed and method != "QRSecant") \
+                else "host"
+        if loop not in ("host", "device"):
+            raise ValueError(f"loop must be 'host' or 'device', got {loop!r}")
+        if loop == "device" and (callback is not None or timed):
+            raise ValueError("loop='device' is incompatible with "
+                             "callback/timed")
+        grid = Grid.create(p.length, p.npoints, dtype=dtype, device=device)
+        coeff = singularity_coeff_matrix(p.npoints, dtype=dtype, device=device)
+
+        tiers, fused = discretization(p, dtype, tiered, fused)
+        plan = assembly_plan(p, grid, quad, tiers) \
+            if kernel_route(p, grid, fused) else None
+        kw = dict(quad=quad, chunk=chunk, tiers=tiers, fused=fused, plan=plan)
+        assemble = assembler(p, grid, coeff, **kw)
+        step = functools.partial(
+            newton_trace_step_timed if timed else _STEP_FNS[method],
+            p, grid, coeff, **kw)
+        omega0 = torch.tensor(complex(omega_init), dtype=cdtype, device=device)
     state = newton.seed(assemble, omega0, secant, EigenState)
     state, n_steps, omega = newton.run(
         step, state, tol, p.iteration_step_limit + 1, dtype != torch.float64,

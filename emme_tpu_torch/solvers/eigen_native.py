@@ -8,13 +8,14 @@ complex128 on the same device.  A solve makes one ``native.assembly_plan``
 (the parameters' one host read, N1's pair rows, the placement's indices)
 and hands it to each of its 2 + steps assemblies; on the card the plan's
 N1 memo is filled by the second and read by the later ones (one more host
-read, of the memo's size, at the second).  It opens the dense
-path's spans: each step's trace solve or QR step under
-``layer.linalg.step``, the null vector (one LU of the final M and inverse
-iteration on M^H M: the SVD's vector without the SVD) under
-``layer.linalg.vector``, and each step's read of d_omega under
-``layer.host_read`` (the plan and ``native.assemble`` open the assembly's,
-the plan's read of the parameters one more ``layer.host_read``).
+read, of the memo's size, at the second).  It opens the dense path's
+spans: the coefficients and the plan under ``layer.solve.setup``, each
+step's trace solve or QR step under ``layer.linalg.step``, the null vector
+(one LU of the final M and inverse iteration on M^H M: the SVD's vector
+without the SVD) under ``layer.linalg.vector``, and each step's read of
+d_omega under ``layer.host_read`` (the plan and ``native.assemble`` open the
+assembly's, the plan's read of the parameters one more
+``layer.host_read``).
 """
 
 from __future__ import annotations
@@ -37,11 +38,13 @@ def solve(p, omega_init: complex, tol: float = 1e-6, callback=None,
     d_omega)`` after each step.  Returns (omega, null vector of M in the
     engine's conjugated convention, steps, M), the last two complex128 on
     ``p.device``.  ``n_threads`` is unused (``native``)."""
-    if method not in METHODS:
-        raise ValueError(f"method must be one of {METHODS}, got {method!r}")
-    coeff = singularity_coeff_matrix(p.npoints, dtype=torch.float64,
-                                     device=p.device)
-    plan = native.assembly_plan(p, coeff)
+    with span("solve.setup"):
+        if method not in METHODS:
+            raise ValueError(f"method must be one of {METHODS}, "
+                             f"got {method!r}")
+        coeff = singularity_coeff_matrix(p.npoints, dtype=torch.float64,
+                                         device=p.device)
+        plan = native.assembly_plan(p, coeff)
 
     omega = 0.99 * complex(omega_init)
     d_omega = 0.01 * complex(omega_init)

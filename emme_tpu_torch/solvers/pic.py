@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from ..ops.bessel import bessel_i01_scaled, bessel_j0, bessel_j1
-from ..utils.timer import section, sync
+from ..utils.timer import host_read, section, sync
 
 # Low-storage RK tableau (reference solver_pic.h:466-470).
 RK_COEF = np.array([
@@ -739,8 +739,10 @@ def _fit_gamma(second, dt, views: bool = False):
 
 
 def _as_numpy(stats):
+    """The statistics on the host; a tensor's copy is a blocking read
+    (``timer.host_read``)."""
     if isinstance(stats, torch.Tensor):
-        return stats.detach().cpu().numpy()
+        return host_read(stats.detach().cpu).numpy()
     return np.asarray(stats)
 
 

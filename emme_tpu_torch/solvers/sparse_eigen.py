@@ -629,31 +629,34 @@ def solve(p, omega_init, tol: float | None = None, quad=None,
     float32 loop also stops at its run-time detected rounding floor, as
     the dense solve does.
     ``host64``: finish with ``host64_polish_banded``.
+    ``layer.solve.setup`` spans the set-up up to the first assembly: the
+    argument checks, the grid, the band, the coefficients, the tiers.
     """
-    tol = tol if tol is not None else 1e-6
-    dtype = dtype if dtype is not None else p.length.dtype
-    device = p.length.device
-    band_deta = band_deta if band_deta is not None else DEFAULT_BAND_DETA
-    if loop is None:
-        loop = "host"
-    if loop not in ("host", "device"):
-        raise ValueError(f"loop must be 'host' or 'device', got {loop!r}")
-    if method not in ("TraceSecant", "QRSecant"):
-        raise ValueError(f"method must be 'TraceSecant' or 'QRSecant', "
-                         f"got {method!r}")
-    grid = Grid.create(p.length, p.npoints, dtype=dtype, device=device)
-    dim = 2 * p.npoints if p.electromagnetic else p.npoints
-    block = block if block is not None else pick_block(dim)
-    h = band_halfwidth(p, grid, block, band_deta)
-    w_el = em_de_max(p.npoints, h, block) if p.electromagnetic \
-        else (h + 1) * block - 1
-    coeff_band = singularity_coeff_band(p.npoints, w_el, dtype=dtype,
-                                        device=device)
-    tiers, fused = eigen.discretization(p, dtype, tiered, fused)
-    cdtype = kernels.complex_dtype(dtype)
-    assemble = assembler(p, grid, coeff_band, h, block, quad, chunk, tiers,
-                         fused)
-    delta = _trace_delta if method == "TraceSecant" else _bordered_delta
+    with span("solve.setup"):
+        tol = tol if tol is not None else 1e-6
+        dtype = dtype if dtype is not None else p.length.dtype
+        device = p.length.device
+        band_deta = band_deta if band_deta is not None else DEFAULT_BAND_DETA
+        if loop is None:
+            loop = "host"
+        if loop not in ("host", "device"):
+            raise ValueError(f"loop must be 'host' or 'device', got {loop!r}")
+        if method not in ("TraceSecant", "QRSecant"):
+            raise ValueError(f"method must be 'TraceSecant' or 'QRSecant', "
+                             f"got {method!r}")
+        grid = Grid.create(p.length, p.npoints, dtype=dtype, device=device)
+        dim = 2 * p.npoints if p.electromagnetic else p.npoints
+        block = block if block is not None else pick_block(dim)
+        h = band_halfwidth(p, grid, block, band_deta)
+        w_el = em_de_max(p.npoints, h, block) if p.electromagnetic \
+            else (h + 1) * block - 1
+        coeff_band = singularity_coeff_band(p.npoints, w_el, dtype=dtype,
+                                            device=device)
+        tiers, fused = eigen.discretization(p, dtype, tiered, fused)
+        cdtype = kernels.complex_dtype(dtype)
+        assemble = assembler(p, grid, coeff_band, h, block, quad, chunk, tiers,
+                             fused)
+        delta = _trace_delta if method == "TraceSecant" else _bordered_delta
 
     def init(om):
         return newton.seed(assemble,

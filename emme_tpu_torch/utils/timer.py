@@ -11,7 +11,7 @@ began.  With no profiler recording it makes one check and nothing else.
 shows them; for ``nsys``, run the program inside
 ``torch.autograd.profiler.emit_nvtx()``, which sends the same ranges out as
 NVTX ranges.  ``host_read`` takes every blocking device-to-host read of an
-eigen request, under the span ``layer.host_read``.
+eigen or a PIC request, under the span ``layer.host_read``.
 
 ``Timer`` and ``section`` keep the reference's table of host-clock seconds
 (``driver.run``'s report, ``eigen_timers``, ``pic_timers``); a section opens
@@ -31,6 +31,8 @@ import torch
 SPANS = (
     "layer.driver.params",     # driver.solve_once_eigen: params.from_config
     "layer.driver.guard",      # driver.solve_once_eigen: the quadrature guard
+    "layer.solve.setup",       # a solve's grid, coefficients, tiers, plan
+    "layer.assembly.plan",     # an assembly plan, or N1's memo's places
     "layer.assembly.pairs",    # an assembly's kernel values (K1 and around)
     "layer.assembly.place",    # writing them into the operator
     "layer.assembly.electron",  # exact EM: electron closed forms, A_par diag
@@ -43,6 +45,9 @@ SPANS = (
     "layer.survey.ritz",       # its Hessenbergs' read, the host eigensolves
     "layer.host_read",         # a blocking device-to-host read
     "layer.pic.setup",         # cuda_pic.run up to K3's launch
+    "layer.pic.params",        # its FusedStep: the scalar block's reads
+    "layer.pic.qn",            # its quasi-neutrality coefficient
+    "layer.pic.arrs",          # its initial state, marker arrays and field
     "layer.pic.k3",            # K3's launch (K2's step loop on that path)
     "layer.pic.state",         # cuda_pic.arrs_to_state
 )

@@ -1,6 +1,7 @@
 """The CUDA kernels on an NVIDIA GPU against their plain PyTorch versions:
 K1 and the float32 solves through it (Newton, the shift-invert Arnoldi
-with its polish, the multi-shift survey's counter and spans, and K1 at the window shape of the mesh-sharded banded
+with its polish, the multi-shift survey's counter and spans, the plans'
+and a PIC request's spans, and K1 at the window shape of the mesh-sharded banded
 assembly); the dense assembly's kernels P and Q around K1 against the
 torch they replace (inputs, M, solves, launches); the quadrature guard's
 kernels G and R (with P) against the guard's torch route, its launches and
@@ -1550,3 +1551,62 @@ def test_adaptive_memo_small_share_memoises_a_prefix(card, monkeypatch):
     assert 0 < memo.n < rows.shape[0]
     assert got[-1][1][1] > 0
     print(f"stel128: {memo.n} of {rows.shape[0]} integrals memoised")
+
+
+def _program_spans(fn):
+    """[(name, start, end)] of the program's spans while ``fn()`` runs
+    under a host profiler.  The tests that take it come last in this
+    file, after every test that counts device events under a profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.name().startswith("layer.")]
+
+
+@pytest.mark.cuda
+def test_plans_open_their_span_once_a_solve_and_once_a_shift(card):
+    """On the kernels' route ``eigen.assembly_plan`` opens
+    ``layer.assembly.plan`` once a dense solve, inside its
+    ``layer.solve.setup``, and once a shift of a survey, inside
+    ``layer.survey.secant``."""
+    p = et.from_config(_cfg("tokamak", 128), dtype=torch.float32, device=card)
+    sigmas = -0.8 + 0.25j + 0.15 * np.array([0.3 - 0.2j, -0.5 + 0.9j,
+                                             1.1 + 0.1j, -0.2 - 1.3j])
+    eigen.solve(p, -0.8 + 0.25j, tol=1e-5)   # warm-up
+    for fn, outer, plans in (
+            (lambda: eigen.solve(p, -0.8 + 0.25j, tol=1e-5),
+             "layer.solve.setup", 1),
+            (lambda: arnoldi.solve_shifts_batched(p, sigmas, m_krylov=24),
+             "layer.survey.secant", len(sigmas))):
+        spans = _program_spans(fn)
+        (o0, o1), = [(a, b) for n, a, b in spans if n == outer]
+        got = [(a, b) for n, a, b in spans if n == "layer.assembly.plan"]
+        assert len(got) == plans
+        assert all(o0 <= a and b <= o1 for a, b in got)
+
+
+@pytest.mark.cuda
+def test_pic_request_reads_are_spans_on_the_card(card):
+    """A PIC request on the card (``state_from_draws`` -> ``cuda_pic.run``
+    through K3 -> ``calculate_omega``) opens nine ``layer.host_read``, as
+    on the CPU (``tests/test_torch_trace.py``): eight of p's scalars in
+    ``FusedStep.params_vec`` and the statistics' copy in the fit."""
+    p = et.from_config(_cfg("tokamak", 128), dtype=torch.float32, device=card)
+    gen = torch.Generator(device=card).manual_seed(1)
+    kw = dict(generator=gen, device=card)
+    n = 8 * 128
+    draws = (torch.rand(n, **kw) * 2.0 * p.length - p.length,
+             torch.randn(n, **kw), torch.randn(n, **kw),
+             torch.rand(n, **kw) * 0.001)
+
+    def request():
+        state = pic.state_from_draws(p, *draws, dtype=torch.float32)
+        stats, _, _ = cuda_pic.run(p, 8, 4, 0.25, state=state)
+        return pic.calculate_omega(stats, 0.25)
+
+    request()   # the K4 self-check, once a process
+    spans = _program_spans(request)
+    assert cuda_pic.LAST_LAUNCH == "single"
+    assert sum(1 for n, _, _ in spans if n == "layer.host_read") == 9

@@ -20,7 +20,8 @@ import emme_tpu_torch as et
 from emme_tpu_torch import driver
 from emme_tpu_torch.grid import Grid
 from emme_tpu_torch.ops.singularity import singularity_coeff_matrix
-from emme_tpu_torch.solvers import arnoldi, cuda_pic, eigen
+from emme_tpu_torch.solvers import (arnoldi, cuda_pic, eigen, eigen_native,
+                                    pic, sparse_eigen)
 from emme_tpu_torch.utils.timer import SPANS, Timer, host_read, section, span
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -99,14 +100,16 @@ def _survey():
 
 SURVEY = {"layer.survey.secant", "layer.survey.lu", "layer.survey.sweep",
           "layer.survey.ritz"}
-EIGEN = {"layer.driver.params", "layer.driver.guard", "layer.assembly.pairs",
-         "layer.assembly.place", "layer.linalg.step", "layer.linalg.vector",
-         "layer.host_read"}
+EIGEN = {"layer.driver.params", "layer.driver.guard", "layer.solve.setup",
+         "layer.assembly.pairs", "layer.assembly.place", "layer.linalg.step",
+         "layer.linalg.vector", "layer.host_read"}
+PIC_SETUP = ("layer.pic.params", "layer.pic.qn", "layer.pic.arrs")
 PATHS = {
     "dense": (_dense, EIGEN),
     "stellarator": (_stellarator, EIGEN),
     "banded": (_banded, EIGEN | {"layer.linalg.arnoldi"}),
-    "pic": (_pic, {"layer.pic.setup", "layer.pic.k3", "layer.pic.state"}),
+    "pic": (_pic, {"layer.pic.setup", "layer.pic.k3", "layer.pic.state",
+                   "layer.host_read", *PIC_SETUP}),
     "survey": (_survey, SURVEY | {"layer.assembly.pairs",
                                   "layer.assembly.place", "layer.host_read"}),
 }
@@ -150,12 +153,116 @@ def test_survey_spans_its_stages():
 
 def test_pic_stages_path_spans_its_step_loop():
     """On K2's path ``layer.pic.k3`` covers the step loop, between the
-    set-up and the state."""
+    set-up and the state; every other span lies inside the set-up."""
     _, spans = _traced(lambda: _pic(launch="stages"))
     assert cuda_pic.LAST_LAUNCH == "stages"
-    assert [name for name, _, _ in spans] == [
+    outer = [s for s in spans if s[0] in ("layer.pic.setup", "layer.pic.k3",
+                                          "layer.pic.state")]
+    assert [name for name, _, _ in outer] == [
         "layer.pic.setup", "layer.pic.k3", "layer.pic.state"]
-    assert spans[0][2] <= spans[1][1] and spans[1][2] <= spans[2][1]
+    (_, s0, s1), (_, k0, k1), (_, t0, _) = outer
+    assert s1 <= k0 and k1 <= t0
+    assert all(s0 <= a and b <= s1 for n, a, b in spans
+               if (n, a, b) not in outer)
+
+
+def _inside(spans, inner, outer):
+    """How many spans named ``inner`` lie inside a span named ``outer``."""
+    boxes = [(t0, t1) for n, t0, t1 in spans if n == outer]
+    return sum(any(a <= t0 and t1 <= b for a, b in boxes)
+               for n, t0, t1 in spans if n == inner)
+
+
+def _within(spans, inner, outer):
+    """Each span named ``inner`` lies inside a span named ``outer``."""
+    return _inside(spans, inner, outer) == sum(1 for n, _, _ in spans
+                                               if n == inner)
+
+
+# a PIC request's blocking reads: ``FusedStep.params_vec``'s copies of p's
+# scalars (length, cell width twice, vt, b_theta, shat, omega_d_bar, q R)
+# and ``pic.calculate_omega``'s copy of the statistics
+PARAMS_READS = 8
+PIC_REQUEST_READS = PARAMS_READS + 1
+
+
+@pytest.mark.parametrize("launch", ["auto", "stages"])
+def test_pic_setup_opens_its_three_parts(launch):
+    """``cuda_pic.run`` opens ``layer.pic.params`` (``FusedStep``),
+    ``.qn`` and ``.arrs`` once each, in that order, inside
+    ``layer.pic.setup``; ``params_vec``'s eight reads of p's scalars lie
+    inside ``layer.pic.params``."""
+    _pic(launch=launch)   # the K4 self-check's read, once a process
+    _, spans = _traced(lambda: _pic(launch=launch))
+    names = collections.Counter(name for name, _, _ in spans)
+    assert [n for n, _, _ in spans if n in PIC_SETUP] == list(PIC_SETUP)
+    assert all(_within(spans, n, "layer.pic.setup") for n in PIC_SETUP)
+    assert names["layer.pic.setup"] == 1
+    assert names["layer.host_read"] == PARAMS_READS
+    assert _within(spans, "layer.host_read", "layer.pic.params")
+    assert not _nested_in_own_name(spans)
+
+
+@pytest.mark.parametrize("launch", ["auto", "stages"])
+def test_pic_request_reads_are_spans(launch):
+    """A PIC request as the benchmark makes one (``state_from_draws`` ->
+    ``cuda_pic.run`` -> ``calculate_omega``) opens one ``layer.host_read``
+    a blocking read: ``PIC_REQUEST_READS``, the K4 self-check's read made
+    once a process before it."""
+    p = et.from_config(_input("tokamak.json", npoints=128),
+                       dtype=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    n = 8 * 128
+    draws = (torch.rand(n, generator=gen) * 2.0 * p.length - p.length,
+             torch.randn(n, generator=gen), torch.randn(n, generator=gen),
+             torch.rand(n, generator=gen) * 0.001)
+
+    def request():
+        state = pic.state_from_draws(p, *draws, dtype=torch.float32)
+        stats, _, _ = cuda_pic.run(p, 8, 4, 0.25, state=state, launch=launch)
+        return pic.calculate_omega(stats, 0.25)
+
+    request()
+    _, spans = _traced(request)
+    names = collections.Counter(name for name, _, _ in spans)
+    assert names["layer.host_read"] == PIC_REQUEST_READS
+    assert _inside(spans, "layer.host_read", "layer.pic.params") \
+        == PARAMS_READS
+
+
+def _solve_tok32(backend):
+    """One tok32 solve through ``backend``'s own solve function."""
+    if backend == "exact":
+        p = et.from_config(_input("tokamak.json", npoints=32),
+                           dtype=torch.float64, device="cpu")
+        return eigen_native.solve(p, GUESS)
+    p = et.from_config(_input("tokamak.json", npoints=32),
+                       dtype=torch.float32, device="cpu")
+    if backend == "banded":
+        return sparse_eigen.solve(p, GUESS, tol=1e-5, band_deta=10.0,
+                                  block=16)
+    return eigen.solve(p, GUESS, tol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["dense", "banded", "exact"])
+def test_solve_opens_its_setup_before_its_assemblies(backend):
+    """``eigen.solve``, ``sparse_eigen.solve`` and ``eigen_native.solve``
+    each open ``layer.solve.setup`` once a solve, and every assembly's
+    spans after it ends; only the exact plan's ``layer.assembly.pairs``
+    (and its ``layer.assembly.plan``) lie inside it."""
+    _, spans = _traced(lambda: _solve_tok32(backend))
+    setup = [(t0, t1) for n, t0, t1 in spans if n == "layer.solve.setup"]
+    assert len(setup) == 1
+    (s0, s1), = setup
+    assembly = [(n, t0, t1) for n, t0, t1 in spans
+                if n.startswith("layer.assembly.")]
+    inside = collections.Counter(n for n, t0, t1 in assembly
+                                 if s0 <= t0 and t1 <= s1)
+    assert inside == ({"layer.assembly.pairs": 1, "layer.assembly.plan": 1}
+                      if backend == "exact" else {})
+    later = [t0 for n, t0, t1 in assembly if not (s0 <= t0 and t1 <= s1)]
+    assert later and min(later) >= s1
+    assert not _nested_in_own_name(spans)
 
 
 @pytest.mark.parametrize("method", ["TraceSecant", "QRSecant",
@@ -197,6 +304,8 @@ def test_exact_backend_opens_the_dense_paths_spans(method):
     assert names["layer.linalg.vector"] == 1
     assert names["layer.host_read"] == steps + 2
     assert names["layer.driver.params"] == 1
+    assert names["layer.solve.setup"] == names["layer.assembly.plan"] == 1
+    assert _within(spans, "layer.assembly.plan", "layer.assembly.pairs")
     assert "layer.driver.guard" not in names
     assert set(names) <= set(SPANS)
     assert not _nested_in_own_name(spans)
@@ -219,7 +328,7 @@ def test_exact_backend_electron_span(conf):
         assemblies if conf == "stellarator" else 0)
     order = [n for n, _, _ in spans if n.startswith("layer.assembly.")]
     if conf == "stellarator":
-        assert order == ["layer.assembly.pairs"] + [
+        assert order == ["layer.assembly.pairs", "layer.assembly.plan"] + [
             "layer.assembly.pairs", "layer.assembly.electron",
             "layer.assembly.place"] * assemblies
     assert set(names) <= set(SPANS)
@@ -261,6 +370,8 @@ def test_span_names_keep_clear_of_the_harness():
     harness = _harness_span_names()
     assert {"layer.solver", "layer.assembly", "layer.k1", "layer.pic_state",
             "layer.pic_run", "layer.pic_fit"} <= harness
+    assert {"layer.solve.setup", "layer.assembly.plan",
+            *PIC_SETUP} <= set(SPANS)
     assert len(set(SPANS)) == len(SPANS)
     assert all(name.startswith("layer.") for name in SPANS)
     assert not set(SPANS) & harness
